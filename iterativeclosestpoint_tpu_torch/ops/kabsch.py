@@ -1,0 +1,59 @@
+"""Kabsch/SVD rigid-transform estimation with a 0/1 inlier mask.
+
+Counterpart of the JAX package's ``ops/kabsch.py`` and of the reference's
+``computeBestFitTransform`` (``icpengine.cpp:76-115``): centroids →
+centered clouds → cross-covariance H = Σ a_c b_cᵀ → SVD → R = V Uᵀ with the
+det<0 reflection fix applied to V's third column (the GUI form,
+icpengine.cpp:101-104) → t = c_b − R c_a. The inlier mask is folded into
+the reductions as weights, so shapes stay fixed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _weighted_moments(s, d, w):
+    """Weighted centroids + cross-covariance (two-pass: centroids first).
+
+    Returns (centroid_src (3,), centroid_dst (3,), H (3,3), count ()).
+    """
+    w = w.to(s.dtype)
+    count = w.sum()
+    inv = torch.where(count > 0, 1.0 / count, torch.zeros_like(count))
+    c_s = (w @ s) * inv
+    c_d = (w @ d) * inv
+    H = ((s - c_s) * w[:, None]).T @ (d - c_d)
+    return c_s, c_d, H, count
+
+
+def rigid_from_covariance(H: torch.Tensor, c_src: torch.Tensor,
+                          c_dst: torch.Tensor) -> torch.Tensor:
+    """Solve the orthogonal Procrustes problem given cross-covariance H.
+
+    Reflection handling follows the reference GUI form: flip V's third
+    column when det(V Uᵀ) < 0. ``torch.linalg.svd`` sorts the singular
+    values, so the third column is the smallest one's, as with JacobiSVD.
+    """
+    U, _, Vh = torch.linalg.svd(H)
+    V = Vh.T
+    R = V @ U.T
+    sign = torch.where(torch.linalg.det(R) < 0, -1.0, 1.0).to(H.dtype)
+    V = torch.cat([V[:, :2], V[:, 2:] * sign], dim=1)
+    R = V @ U.T
+    t = c_dst - R @ c_src
+
+    T = torch.eye(4, dtype=H.dtype, device=H.device)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T
+
+
+def kabsch_masked(src, dst, mask) -> torch.Tensor:
+    """Best rigid transform mapping masked ``src`` points onto ``dst``.
+
+    ``mask`` is the (N,) 0/1 (or bool) inlier set; the reductions and the
+    (4,4) result are in ``src.dtype``.
+    """
+    c_s, c_d, H, _ = _weighted_moments(src, dst, mask)
+    return rigid_from_covariance(H, c_s, c_d).to(src.dtype)

@@ -1,0 +1,123 @@
+"""The slab sweep's target grid and query layout, built on the device.
+
+Counterpart of ``_build_grid_dev`` (:409), ``_build_grids_dev`` (:476),
+``grouped_tile_order_device`` (:516) and ``PallasGrid`` (:61) in the JAX
+package's ``ops/pallas_nn.py``:
+
+* the target is stable-sorted by x-major cell id ((cx·R)+cy)·R+cz and
+  stored transposed as ``tgt_t`` (8, M + trange): rows 0-2 are x, y, z,
+  rows 3-7 and the ``trange`` tail columns hold the far padding value, so
+  a slab read of ``trange`` rows from any base ≤ M stays in bounds;
+* ``col_start`` is the (R²+1,) CSR at (x, y)-column granularity: a slab
+  (one x-cell, a y-span, all z) is one contiguous row range;
+* queries are laid out in x-group-aligned tiles of 128: sorted by cell
+  id, each x-cell group padded to a tile multiple by replicating its last
+  query (weight 0), so no tile crosses an x boundary.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_FAR = 1.0e6  # padding coordinate: far but square-safe in f32
+
+
+class PallasGrid(NamedTuple):
+    """One grid level (the JAX package's ``PallasGrid``; same fields)."""
+
+    tgt_t: torch.Tensor      # (8, M + trange) f32, cell-sorted, transposed
+    col_start: torch.Tensor  # (R²+1,) int32 CSR offsets per (x, y) column
+    origin: torch.Tensor     # (3,) f32 grid origin (target bbox min)
+    cell_size: torch.Tensor  # () f32
+    bbox_hi: torch.Tensor    # (3,) f32 true target bbox max (same frame)
+
+
+def cell_coords(points: torch.Tensor, origin: torch.Tensor,
+                cell_size: torch.Tensor, resolution: int) -> torch.Tensor:
+    """(N, 3) int32 cell coordinates, truncated toward zero and clipped to
+    [0, R-1] (the JAX ``astype(int32)`` + ``clip``)."""
+    c = ((points - origin[None, :]) / cell_size).to(torch.int32)
+    return torch.clamp(c, 0, resolution - 1)
+
+
+def build_grid(target: torch.Tensor, origin: torch.Tensor,
+               cell_size: torch.Tensor, *, resolution: int,
+               trange: int) -> PallasGrid:
+    """Stable cell sort, (R²+1) column CSR, far padding and true bbox max,
+    on the target's device."""
+    R = resolution
+    tgt = target.to(torch.float32)
+    org = origin.to(torch.float32)
+    cs = cell_size.to(torch.float32)
+    c = cell_coords(tgt, org, cs, R)
+    cid = (c[:, 0] * R + c[:, 1]) * R + c[:, 2]
+    cid_sorted, order = torch.sort(cid, stable=True)
+    col_start = torch.searchsorted(
+        cid_sorted,
+        torch.arange(R * R + 1, dtype=torch.int32, device=tgt.device) * R,
+    ).to(torch.int32)
+
+    m = tgt.shape[0]
+    tt = torch.full((8, m + trange), _FAR, dtype=torch.float32,
+                    device=tgt.device)
+    tt[0:3, :m] = tgt[order].T
+    real = (tgt[:, 0] < _FAR * 0.5)[:, None]
+    hi3 = torch.where(real, tgt, torch.full_like(tgt, -_FAR)).amax(dim=0)
+    return PallasGrid(tgt_t=tt, col_start=col_start, origin=org,
+                      cell_size=cs, bbox_hi=hi3)
+
+
+def build_grids(target, origin, cell, cell_c, *, resolution: int,
+                trange: int, coarse_resolution: int, coarse_trange: int):
+    """The fine grid and the 4×-coarser repair grid over one target."""
+    fine = build_grid(target, origin, cell, resolution=resolution,
+                      trange=trange)
+    coarse = build_grid(target, origin, cell_c,
+                        resolution=coarse_resolution, trange=coarse_trange)
+    return fine, coarse
+
+
+def grouped_tile_order_device(query, origin, cell_size, *, resolution: int,
+                              tile_q: int = 128, group: str = "x"):
+    """X-group-aligned query layout at a fixed worst-case length.
+
+    Returns (rows (n_pad,) int64 into ``query``, weight (n_pad,) f32: 1 for
+    real rows, 0 for padding). The length is ``n`` + G·(tile_q−1) rounded
+    up to a tile multiple; output row j belongs to group
+    g = searchsorted(out_end, j, right) and replicates the group's last
+    real row past its count. Rows past the last group's pad replicate one
+    real query with weight 0.
+    """
+    n = query.shape[0]
+    R = resolution
+    G = R if group == "x" else R * R
+    total = -(-(n + G * (tile_q - 1)) // tile_q) * tile_q
+    dev = query.device
+    c = cell_coords(query.to(torch.float32), origin.to(torch.float32),
+                    cell_size.to(torch.float32), R)
+    cid = (c[:, 0] * R + c[:, 1]) * R + c[:, 2]
+    gq = c[:, 0] if group == "x" else c[:, 0] * R + c[:, 1]
+    _, order = torch.sort(cid, stable=True)
+    xc = gq[order].to(torch.int64)
+    bounds = torch.searchsorted(
+        xc, torch.arange(G + 1, dtype=torch.int64, device=dev)
+    )
+    counts = bounds[1:] - bounds[:-1]
+    in_base = bounds[:-1]
+    n_pad_g = ((counts + tile_q - 1) // tile_q) * tile_q
+    out_end = torch.cumsum(n_pad_g, dim=0)
+    out_base = out_end - n_pad_g
+
+    j = torch.arange(total, dtype=torch.int64, device=dev)
+    g = torch.searchsorted(out_end, j, right=True)
+    g_cl = torch.clamp(g, 0, G - 1)
+    r = j - out_base[g_cl]
+    cnt = counts[g_cl]
+    real = (g < G) & (r < cnt)
+    idx = torch.clamp(
+        in_base[g_cl] + torch.minimum(r, torch.clamp(cnt - 1, min=0)),
+        0, n - 1,
+    )
+    return order[idx], real.to(torch.float32)

@@ -1,0 +1,190 @@
+"""The sweep's three CUDA kernels, their wrappers and their plain versions.
+
+| kernel | source | replaces (``iterativeclosestpoint_tpu/ops/pallas_nn.py``) |
+| --- | --- | --- |
+| K1 ``colsweep_fused`` | ``csrc/colsweep_fused.cu`` | ``_colsweep_fused_kernel`` :1165 |
+| K2 ``colsweep`` | ``csrc/colsweep.cu`` | ``_colsweep_kernel`` :1025 |
+| K3 ``brute_nn`` | ``csrc/brute_nn.cu`` | ``_colsweep_kernel(first_tie=True)`` on a one-cell grid |
+
+A wrapper takes its plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel on the current stream or raises; each
+launch adds one to ``LAUNCHES[name]`` and to ``LAUNCH_SHAPES[(name,
+shape)]``, the shape being (tiles, slabs, trange) for a sweep and
+(queries, targets) for K3. The kernels allocate nothing: the wrappers
+allocate outputs with ``torch.empty`` / ``torch.full``.
+
+Sweep output contract (K1, K2 and their plain version): (t, 8, 128) f32
+per tile of 128 queries — rows 0-5 the winner's rows 0-5 of ``tgt_t``
+(xyz and normal), row 6 its d², row 7 1.0 for a unique winner and 2.0 for
+an exact tie. The winner is the first minimum in scan order (slab by
+slab, row by row). A tie is another row index with exactly the winner's
+d². When no candidate falls below 1e18 the winner rows are 0 and row 6
+holds 1e18.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from iterativeclosestpoint_tpu_torch.ops import _build
+from iterativeclosestpoint_tpu_torch.ops.bruteforce import (
+    nn_bruteforce,
+    winner_dist,
+)
+
+TILE_Q = 128
+BIG = 1.0e18
+
+LAUNCHES = {"colsweep_fused": 0, "colsweep": 0, "brute_nn": 0}
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _check(name, x, dtype, shape=None):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name, shape, *args):
+    fn = getattr(_build.library(name), name)
+    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, shape)] += 1
+
+
+def colsweep_plain(base, q, tgt_t, *, slabs: int, trange: int,
+                   fused: bool, slack=None):
+    """Plain PyTorch version of K1 (``fused=True``) and K2.
+
+    Tiles run in groups so the (tiles, 128, slabs·trange) d² block stays
+    near 2²⁵ floats.
+    """
+    t = base.shape[0]
+    dev = q.device
+    L = slabs * trange
+    out = torch.empty((t, 8, TILE_Q), dtype=torch.float32, device=dev)
+    lanes = torch.arange(trange, dtype=torch.int64, device=dev)
+    step = max(1, (1 << 25) // (TILE_Q * L))
+    for t0 in range(0, t, step):
+        t1 = min(t, t0 + step)
+        tb = t1 - t0
+        rows = (base[t0:t1].to(torch.int64)[:, :, None] + lanes).reshape(
+            tb, L)
+        cx, cy, cz = (tgt_t[r][rows][:, None, :] for r in range(3))
+        qb = q[t0 * TILE_Q:t1 * TILE_Q].reshape(tb, TILE_Q, 3)
+        dx = qb[:, :, 0:1] - cx
+        dy = qb[:, :, 1:2] - cy
+        dz = qb[:, :, 2:3] - cz
+        d2 = (dx * dx + dy * dy) + dz * dz  # (tb, 128, L)
+        if fused:
+            v = slack[t0:t1].to(torch.int64)
+            u = lanes - (v & 127)[:, :, None]
+            valid = ((u >= 0) & (u < (v >> 7)[:, :, None])).reshape(tb, 1, L)
+            d2 = torch.where(valid, d2, torch.full_like(d2, BIG))
+        else:
+            valid = torch.ones((tb, 1, L), dtype=torch.bool, device=dev)
+        dmin, arg = d2.min(dim=2)
+        win = torch.gather(rows, 1, arg)  # (tb, 128) winner rows
+        found = dmin < BIG
+        tie = found & (
+            (d2 == dmin[:, :, None]) & valid
+            & (rows[:, None, :] != win[:, :, None])
+        ).any(dim=2)
+        ext = tgt_t[0:6][:, win]  # (6, tb, 128)
+        out[t0:t1, 0:6] = torch.where(
+            found[None], ext, torch.zeros_like(ext)).permute(1, 0, 2)
+        out[t0:t1, 6] = torch.where(found, dmin, torch.full_like(dmin, BIG))
+        out[t0:t1, 7] = torch.where(tie, 2.0, 1.0)
+    return out
+
+
+def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
+             slack=None):
+    """K1 (``fused=True``, with ``slack``) or K2 over ``t`` tiles.
+
+    ``base`` (t, slabs) int32: 128-aligned row bases, ≤ M; ``slack``
+    (t, slabs) int32: lo | (width << 7) per slot (K1 only); ``q``
+    (t·128, 3) f32; ``tgt_t`` (8, M + trange) f32. Returns (t, 8, 128).
+    """
+    t = base.shape[0]
+    _check("base", base, torch.int32, (t, slabs))
+    _check("q", q, torch.float32, (t * TILE_Q, 3))
+    _check("tgt_t", tgt_t, torch.float32)
+    if tgt_t.shape[0] != 8 or tgt_t.shape[1] < trange:
+        raise ValueError(f"tgt_t: expected (8, M + {trange}), "
+                         f"got {tuple(tgt_t.shape)}")
+    if fused:
+        _check("slack", slack, torch.int32, (t, slabs))
+    if q.device.type == "cpu":
+        return colsweep_plain(base, q, tgt_t, slabs=slabs, trange=trange,
+                              fused=fused, slack=slack)
+    tensors = [base, q, tgt_t] + ([slack] if fused else [])
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("colsweep: all tensors must be on one device")
+    # One launch covers every tile. The JAX package split the tile axis
+    # into parts (``_sweep_kernel_call``, pallas_nn.py:1385-1421) because
+    # its scalar-prefetch base table had to fit the TPU's 1 MB SMEM; each
+    # CTA here reads its own bases from device memory, so that split is
+    # left out on purpose.
+    out = torch.empty((t, 8, TILE_Q), dtype=torch.float32, device=q.device)
+    stride = tgt_t.shape[1]
+    shape = (t, slabs, trange)
+    if fused:
+        _launch("colsweep_fused", shape, base.data_ptr(), slack.data_ptr(),
+                q.data_ptr(), tgt_t.data_ptr(), stride, t, slabs, trange,
+                out.data_ptr())
+    else:
+        _launch("colsweep", shape, base.data_ptr(), q.data_ptr(),
+                tgt_t.data_ptr(), stride, t, slabs, trange, out.data_ptr())
+    return out
+
+
+def brute_splits(n: int, m: int, device) -> int:
+    """Target splits for K3: enough CTAs for ~4 per SM, each split at
+    least one staged chunk of 1024 rows."""
+    tiles = -(-n // TILE_Q)
+    ctas = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-ctas // tiles), -(-m // 1024)))
+
+
+def nn_brute(query, target):
+    """K3: exact 1-NN, first-minimum order. Returns (idx (N,) int64,
+    dist (N,)) like ``nn_bruteforce``, its plain version; the distance is
+    recomputed from the winner as there."""
+    _check("query", query, torch.float32)
+    _check("target", target, torch.float32)
+    if query.ndim != 2 or query.shape[1] != 3 or target.ndim != 2 \
+            or target.shape[1] != 3:
+        raise ValueError("nn_brute: query and target must be (N, 3), (M, 3)")
+    if query.device.type == "cpu":
+        return nn_bruteforce(query, target)
+    if target.device != query.device:
+        raise ValueError("nn_brute: query and target on different devices")
+    n, m = query.shape[0], target.shape[0]
+    if m >= 2**31:
+        raise ValueError("nn_brute: target rows must fit int32")
+    keys = torch.full((n,), -1, dtype=torch.int64, device=query.device)
+    splits = brute_splits(n, m, query.device)
+    rows_per_split = -(-m // splits)
+    _launch("brute_nn", (n, m), query.data_ptr(), n, target.data_ptr(), m,
+            splits, rows_per_split, keys.data_ptr())
+    # All-ones keys (no candidate below 1e18) map to row 0, the plain
+    # version's initial winner.
+    idx = torch.where(keys < 0, 0, keys & 0xFFFFFFFF)
+    return idx, winner_dist(query, target, idx)

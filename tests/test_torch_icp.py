@@ -1,0 +1,161 @@
+"""Port parity: the ICP loop and multiscale driver against the f64 NumPy
+oracle and the JAX package, on the CPU with the kernels' plain versions.
+
+Tolerances and why:
+
+* f64 brute-force trajectory against ``utils/oracle.py``: 1e-9, the
+  repository's oracle gate (only summation order differs);
+* f32 pallas runs against the JAX functions: same iteration count and stop
+  code, and ``registration_error`` ≤ 1e-4 m (the f32 parity gate of
+  PARITY.md). The two packages sum the f32 statistics and covariances in
+  different orders, so poses agree to f32 roundoff of converged fits, not
+  bit for bit. Fixtures are chosen to converge, where that holds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iterativeclosestpoint_tpu.models.icp import icp_register as jax_icp
+from iterativeclosestpoint_tpu.models.multiscale import (
+    icp_register_multiscale as jax_multiscale,
+)
+from iterativeclosestpoint_tpu.utils.oracle import oracle_icp
+from iterativeclosestpoint_tpu.utils.synth import (
+    apply_transform_np,
+    make_registration_pair,
+)
+from iterativeclosestpoint_tpu_torch import (
+    convert,
+    icp_register,
+    icp_register_multiscale,
+)
+from iterativeclosestpoint_tpu_torch.models import icp as ticp
+
+UTM = np.array([500_000.0, 4_000_000.0, 1_200.0])
+
+
+def _reg_err(Ta, Tb, pts):
+    pa = pts @ Ta[:3, :3].T + Ta[:3, 3]
+    pb = pts @ Tb[:3, :3].T + Tb[:3, 3]
+    return float(np.linalg.norm(pa - pb, axis=1).max())
+
+
+@pytest.mark.parametrize("mode", ["gui", "cli"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_f64_brute_trajectory_matches_oracle(mode, seed):
+    src, tgt, _ = make_registration_pair(n=2000, seed=seed, noise_sigma=0.02)
+    res = icp_register(src, tgt, dtype=torch.float64, mode=mode,
+                       max_iterations=30, center=False,
+                       nn_backend="bruteforce", device="cpu")
+    ref = oracle_icp(src, tgt, max_iterations=30, mode=mode)
+    assert res.iterations == len(ref.history)
+    assert res.message == ref.message
+    for i, h in enumerate(ref.history):
+        assert res.history_valid[i] == h.valid_points, f"iter {i}"
+        np.testing.assert_allclose(res.history_rmse[i], h.rmse, rtol=1e-9)
+        np.testing.assert_allclose(res.history_transform[i], h.transform,
+                                   atol=1e-9)
+    np.testing.assert_allclose(res.transform, ref.transform, atol=1e-9)
+    np.testing.assert_allclose(res.source_registered, ref.source_registered,
+                               atol=1e-8)
+
+
+def test_f32_pallas_icp_matches_jax():
+    src, tgt, _ = make_registration_pair(n=6000, seed=83, noise_sigma=0.01)
+    kw = dict(nn_backend="pallas", max_iterations=30)
+    ref = jax_icp(src, tgt, dtype=jnp.float32, **kw)
+    res = icp_register(src, tgt, device="cpu", **kw)
+    assert res.nn_resolution == ref.nn_resolution
+    assert (res.iterations, res.stop_reason) == (ref.iterations,
+                                                 ref.stop_reason)
+    assert _reg_err(res.transform, ref.transform, src) <= 1e-4
+    # The tile layout is undone on the registered cloud.
+    np.testing.assert_allclose(res.source_registered,
+                               apply_transform_np(res.transform, src),
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("offset", ["local", "utm"])
+def test_f32_pallas_multiscale_matches_jax(offset):
+    src, tgt, T_true = make_registration_pair(n=12000, seed=95,
+                                              noise_sigma=0.01)
+    off = UTM if offset == "utm" else np.zeros(3)
+    kw = dict(nn_backend="pallas", max_iterations=30, coarse_max_points=2000,
+              return_registered=False)
+    ref = jax_multiscale(src + off, tgt + off, dtype=jnp.float32, **kw)
+    res = icp_register_multiscale(src + off, tgt + off, device="cpu", **kw)
+    assert [s for s, _ in res.levels] == [s for s, _ in ref.levels]
+    for (_, a), (_, b) in zip(res.levels, ref.levels):
+        assert (a.iterations, a.stop_reason) == (b.iterations, b.stop_reason)
+    assert _reg_err(res.transform, ref.transform, src + off) <= 1e-4
+    T_utm = T_true.copy()
+    T_utm[:3, 3] = T_true[:3, 3] + off - T_true[:3, :3] @ off
+    assert _reg_err(res.transform, T_utm, src + off) < 1e-3
+
+
+def test_loop_step_from_jax_carry():
+    """One iteration from a mid-run carry taken over from the JAX package
+    lands on the JAX package's next pose (f64, brute force)."""
+    from iterativeclosestpoint_tpu.models.icp import _brute_adapter, _icp_core
+
+    src, tgt, _ = make_registration_pair(n=1500, seed=4, noise_sigma=0.02)
+    first = jax_icp(src, tgt, dtype=jnp.float64, max_iterations=3,
+                    tolerance=0.0, center=False)
+    carry = (first.carry_transform_local, first.carry_prev_error,
+             first.carry_no_improve)
+    jout = _icp_core(jnp.asarray(src), jnp.asarray(tgt), (),
+                     tuple(jnp.asarray(c) for c in carry), nn_fn=_brute_adapter,
+                     max_iterations=1, tolerance=0.0, sigma_multiplier=3.0,
+                     widen_first=False)
+    s, t = (torch.as_tensor(x, dtype=torch.float64) for x in (src, tgt))
+    out = ticp.icp_core(
+        s, torch.ones(len(src), dtype=torch.float64), t, (),
+        nn_fn=ticp._brute_adapter, max_iterations=1, tolerance=0.0,
+        sigma_multiplier=3.0, widen_first=False,
+        carry=convert.carry_from_numpy(*carry, dtype=torch.float64,
+                                       device="cpu"))
+    np.testing.assert_allclose(out["T_cum"].numpy(), np.asarray(jout["T_cum"]),
+                               atol=1e-12)
+    np.testing.assert_allclose(out["h_rmse"].numpy(),
+                               np.asarray(jout["h_rmse"]), rtol=1e-12)
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(estimator="plane"), "P10"),
+    (dict(robust="huber"), "P12"),
+    (dict(segment_iterations=2), "P12"),
+    (dict(nn_backend="cellblock"), "P16"),
+])
+def test_unported_options_raise(option, item):
+    src, tgt, _ = make_registration_pair(n=300, seed=1)
+    with pytest.raises(NotImplementedError, match=item):
+        icp_register(src, tgt, device="cpu", max_iterations=1, **option)
+
+
+def test_unported_multiscale_and_regime_raise():
+    """Multi-device options raise P15; the kernel-regime gate raises P11 on
+    a volume cloud exactly where the JAX package picks its z-column sweep,
+    and passes a terrain cloud of the same size to the slab sweep."""
+    from iterativeclosestpoint_tpu.ops.pallas_nn import (
+        make_pallas_nn_device as jax_make,
+    )
+    from iterativeclosestpoint_tpu.utils.synth import make_cloud
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
+        make_pallas_nn_device,
+    )
+
+    src, tgt, _ = make_registration_pair(n=300, seed=1)
+    with pytest.raises(NotImplementedError, match="P15"):
+        icp_register_multiscale(src, tgt, device="cpu", mesh=object())
+    rng = np.random.default_rng(0)
+    vol = rng.uniform(-50, 50, (50_000, 3)).astype(np.float32)
+    vol[:, 2] *= 0.2  # the 10:10:1 box of the JAX package's regime test
+    assert jax_make(vol)[0].layout_group == "xy"  # z-column there
+    with pytest.raises(NotImplementedError, match="P11"):
+        make_pallas_nn_device(vol, device="cpu")
+    ter = make_cloud(50_000, seed=1, kind="terrain", extent=50.0)
+    ter = (ter - ter.mean(0)).astype(np.float32)
+    assert jax_make(ter)[0].layout_group == "x"
+    assert make_pallas_nn_device(ter, device="cpu")[0].layout_group == "x"

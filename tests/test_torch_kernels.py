@@ -1,0 +1,115 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card and skip without one (the CPU suite runs
+the plain versions through the parity tests instead). On a machine with a
+card and no JAX, run them without the repository's conftest (which
+imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Tolerance: none. With FMA contraction forbidden the kernels and the plain
+versions round the same operations in the same order, so winners and d²
+are bit-identical on rows without an exact tie, and the tie flags equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
+from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
+    build_grid,
+    grouped_tile_order_device,
+)
+from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
+    nn_colsweep_exact,
+    sweep_window,
+)
+from iterativeclosestpoint_tpu_torch.utils.synth import make_cloud
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def _setup(dev, n=60_000, R=32, trange=768, dup=False):
+    tgt = make_cloud(n, seed=3, extent=50.0).astype(np.float32)
+    if dup:
+        tgt[n // 2:] = tgt[: n - n // 2]
+    rng = np.random.default_rng(4)
+    q = tgt + rng.normal(0, 0.05, tgt.shape).astype(np.float32)
+    t_dev = torch.as_tensor(tgt, device=dev)
+    lo = tgt.min(axis=0)
+    cell = float((tgt.max(axis=0).astype(np.float64) - lo).max()) / R
+    grid = build_grid(t_dev, torch.as_tensor(lo, device=dev),
+                      torch.tensor(cell, dtype=torch.float32, device=dev),
+                      resolution=R, trange=trange)
+    q_dev = torch.as_tensor(q, device=dev)
+    rows, _ = grouped_tile_order_device(q_dev, grid.origin, grid.cell_size,
+                                        resolution=R)
+    return tgt, t_dev, grid, q_dev[rows]
+
+
+def _same(out_k, out_p):
+    tie = out_p[:, 7] != 1.0
+    assert torch.equal(out_k[:, 7] != 1.0, tie)
+    free = (~tie)[:, None, :].expand(-1, 7, -1)
+    assert torch.equal(out_k[:, 0:7][free], out_p[:, 0:7][free])
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_k1_fused_matches_plain(card, dup):
+    _, _, grid, q = _setup(card, dup=dup)
+    win = sweep_window(q, grid, resolution=32, tile_q=128, slabs=4,
+                       trange=768, fused=True)
+    args = (win.base, win.q32, grid.tgt_t)
+    kw = dict(slabs=4, trange=768, fused=True, slack=win.slack)
+    before = sk.LAUNCHES["colsweep_fused"]
+    out_k = sk.colsweep(*args, **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["colsweep_fused"] == before + 1
+    _same(out_k, sk.colsweep_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_k2_matches_plain(card, dup):
+    _, _, grid, q = _setup(card, R=8, trange=8192, dup=dup)
+    win = sweep_window(q, grid, resolution=8, tile_q=128, slabs=4,
+                       trange=8192, fused=False)
+    args = (win.base, win.q32, grid.tgt_t)
+    kw = dict(slabs=4, trange=8192, fused=False)
+    before = sk.LAUNCHES["colsweep"]
+    out_k = sk.colsweep(*args, **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["colsweep"] == before + 1
+    _same(out_k, sk.colsweep_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_k3_matches_plain(card, dup):
+    tgt, t_dev, _, q = _setup(card, n=20_000, dup=dup)
+    q = q[:5000].contiguous()
+    ik, dk = sk.nn_brute(q, t_dev)
+    ip, dp = nn_bruteforce(q, t_dev)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+def test_exact_chain_on_card_matches_cpu(card):
+    tgt, t_dev, grid, q = _setup(card, n=30_000, R=32, trange=2048)
+    shifted = (q + 1.5 * grid.cell_size).contiguous()
+    coarse = build_grid(t_dev, grid.origin, grid.cell_size * 4,
+                        resolution=8, trange=8192)
+    kw = dict(resolution=32, coarse_resolution=8, slabs=4, trange=2048,
+              coarse_trange=8192)
+    m_k, _, d_k = nn_colsweep_exact(shifted, t_dev, grid, coarse, **kw)
+    cpu = lambda g: type(g)(*(x.cpu() for x in g))  # noqa: E731
+    m_p, _, d_p = nn_colsweep_exact(shifted.cpu(), t_dev.cpu(), cpu(grid),
+                                    cpu(coarse), **kw)
+    assert torch.equal(m_k.cpu(), m_p) and torch.equal(d_k.cpu(), d_p)
