@@ -9,15 +9,19 @@ Phases, one or more lines each:
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: the three CUDA kernels (``csrc/*.cu``), one nvcc each, together;
-3. kernels against plain, at the main path's shapes on the 1M-point
+3. kernels against plain, at the main paths' shapes. On the 1M-point
    terrain pair (seed 7): K1 on the fine grid, K2 on the coarse repair
    grid at each stage size of the repair chain (64, 192 and 512 tiles),
    K3 at the coarse-level shape and at the repair chain's brute stages
-   (512 and 4096 queries against the 1M target). On rows without an exact
-   tie the winner and d² must be bit-identical, and the tie flags equal
-   everywhere. Times are CUDA-event medians of 5 calls; the bound is the
-   larger of bytes / 3.35 TB/s and 9 f32 operations per query–candidate
-   pair / 67 TFLOP/s (the H100 SXM data-sheet peaks);
+   (512 and 4096 queries against the 1M target). On the 1M-point uniform
+   volume pair (seed 7): K1 as the z-column sweep (12 z-window slots of
+   zrange rows), K2 on the volume's coarse repair grid at the same three
+   stage sizes, and K2 in the z-column sweep's slot-wise form (12 slots ×
+   3072 rows, past its 24576-lane gate) on 512 tiles. On rows without an
+   exact tie the winner and d² must be bit-identical, and the tie flags
+   equal everywhere. Times are CUDA-event medians of 5 calls; the bound
+   is the larger of bytes / 3.35 TB/s and 9 f32 operations per
+   query–candidate pair / 67 TFLOP/s (the H100 SXM data-sheet peaks);
 4. the main path: ``icp_register_multiscale`` with the headline
    configuration (1M points, coarse_max_points 30k, 15 coarse and 20 fine
    iterations at tolerance 0), one warm-up and 3 timed runs, launch counts
@@ -26,13 +30,17 @@ Phases, one or more lines each:
    synced run, one run under ``torch.profiler`` (device busy time, idle
    share, kernels by device time), and the final pose's NN held against
    ``scipy.spatial.cKDTree``;
+4b. the volume path: the same, with ``bench.py``'s volume configuration
+   (the 1M uniform 10:10:2 box, seed 7, the headline's kwargs), where the
+   regime gate picks the z-column sweep: K1 must launch at 12 slots;
 5. the repair path: ``icp_register`` at 250k points from a misalignment of
    a few fine cells (K2 must launch; the first iteration's NN is exact);
-6. card against CPU: one 60k-point multiscale problem on both, same
-   iteration counts and stop codes, registration error ≤ 1e-4 m;
-7. a JSON line ``{"kernels": [...]}`` with each kernel's launches, error
-   and times at its most launched shape, and every measured shape under
-   ``shapes``;
+6. card against CPU: a 60k-point terrain and a 50k-point uniform box
+   (z-column sweep on both devices), multiscale on both, same iteration
+   counts and stop codes, registration error ≤ 1e-4 m;
+7. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
+   both main paths, error and times at its most launched shape, and every
+   measured shape under ``shapes`` with its launches per path;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -57,6 +65,12 @@ HEADLINE = dict(n=1_000_000, seed=7, noise_sigma=0.02, kind="terrain",
 HEADLINE_KW = dict(coarse_max_points=30_000, coarse_iterations=15,
                    max_iterations=20, tolerance=0.0, nn_backend="pallas",
                    return_registered=False)
+# bench.py's volume row: the headline's kwargs on a uniform box.
+VOLUME = dict(n=1_000_000, seed=7, noise_sigma=0.02, kind="uniform",
+              extent=100.0)
+ZCOL_SLOTWISE = 3072    # phase 3: a zrange past the 24576-lane K1 gate
+SLOTWISE_TILES = 512    # phase 3: tiles of that slot-wise K2 launch
+BOX_N = 50_000          # phase 6 uniform box
 REPAIR_N = 250_000      # phase 5 cloud size
 CARD_CPU_N = 60_000     # phase 6 cloud size
 DEVICE = "cuda"
@@ -65,6 +79,20 @@ DEVICE = "cuda"
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def make_data(config):
+    """A registration pair and its centered f32 copies."""
+    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    src, tgt, T_true = make_registration_pair(**config)
+    offset = center_offset(tgt)
+    return dict(src=src, tgt=tgt, T_true=T_true, offset=offset,
+                src_local=(src - offset).astype(np.float32),
+                tgt_local=(tgt - offset).astype(np.float32))
 
 
 def cuda_ms(fn, reps=5):
@@ -167,30 +195,112 @@ def _timed_pair(label, kernel, plain, compare, pairs, nbytes,
                 max_abs_err=err, library_ms=lib_ms, pairs=pairs)
 
 
-def phase_kernels(data):
-    """Each kernel against its plain version at every shape the headline
-    run can launch it with. Returns {name: {shape: entry}}; a shape is the
-    key the wrapper tallies in ``LAUNCH_SHAPES`` (K1: (slabs, trange), its
-    tile count follows the query layout)."""
-    from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
-    from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
-        grouped_tile_order_device,
-    )
+def _compare_sweep(out_k, out_p):
+    err, ties = _compare_sweeps(out_k, out_p)
+    return err, f", ties {ties}"
+
+
+def _sweep_k1(results, win, tgt_t, slabs, trange, replaces):
+    """K1 against plain on one window (all its tiles), the certificates
+    too; keyed (slabs, trange), since its tile count follows the query
+    layout."""
     from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
         colsweep,
         colsweep_plain,
-        nn_brute,
     )
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import sweep_results
+
+    t = win.base.shape[0]
+    args = (win.base, win.q32, tgt_t)
+    kw = dict(slabs=slabs, trange=trange, fused=True, slack=win.slack)
+    v = win.slack.long()
+    lens = torch.clamp(torch.minimum(v >> 7, trange - (v & 127)), min=0)
+
+    def compare_k1(out_k, out_p):
+        err, note = _compare_sweep(out_k, out_p)
+        cert_k = sweep_results(out_k, win, torch.float32)[3]
+        cert_p = sweep_results(out_p, win, torch.float32)[3]
+        check(torch.equal(cert_k, cert_p), "K1 certified differs from plain")
+        return err, note + f", certified {float(cert_k.float().mean()):.6f}"
+
+    shape = f"{t} tiles x {slabs} slots, trange {trange}"
+    entry = _timed_pair(
+        f"K1 colsweep_fused {shape}", lambda: colsweep(*args, **kw),
+        lambda: colsweep_plain(*args, **kw), compare_k1,
+        int(lens.sum()) * 128,
+        t * 128 * 12 + t * slabs * 8 + (tgt_t.shape[1] - trange) * 12
+        + t * 8 * 128 * 4)
+    entry.update(shape=shape, replaces=replaces)
+    results["colsweep_fused"][(slabs, trange)] = entry
+
+
+def _sweep_k2(results, win, tgt_t, slabs, trange, tile_counts, replaces):
+    """K2 against plain on the first ``ct`` tiles of one window for each
+    ``ct``; keyed (ct, slabs, trange). The work does not depend on the
+    data."""
+    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
+        colsweep,
+        colsweep_plain,
+    )
+
+    kw = dict(slabs=slabs, trange=trange, fused=False)
+    for ct in tile_counts:
+        args = (win.base[:ct].contiguous(),
+                win.q32[:ct * 128].contiguous(), tgt_t)
+        shape = f"{ct} tiles x {slabs} slabs, trange {trange}"
+        entry = _timed_pair(
+            f"K2 colsweep {shape}", lambda: colsweep(*args, **kw),
+            lambda: colsweep_plain(*args, **kw), _compare_sweep,
+            ct * slabs * trange * 128,
+            ct * 128 * 12 + ct * slabs * 4 + (tgt_t.shape[1] - trange) * 12
+            + ct * 8 * 128 * 4)
+        entry.update(shape=shape, replaces=replaces)
+        results["colsweep"][(ct, slabs, trange)] = entry
+
+
+def _repair_queries(tgt_local, cell, n, rng):
+    """``n`` target points moved up to 1.2 fine cells per axis, so that
+    many fine tiles decertify (the coarse repair stages' input)."""
+    idx = rng.choice(len(tgt_local), n, replace=n > len(tgt_local))
+    c = np.broadcast_to(np.asarray(cell, np.float32), (3,))
+    return tgt_local[idx] + rng.uniform(-1.2 * c, 1.2 * c,
+                                        (n, 3)).astype(np.float32)
+
+
+def _stage_tiles(t):
+    """The repair chain's coarse stage sizes (nn_colsweep_exact's
+    ct_small, ct_mid and ct_full at the default 65536-query budget)."""
+    ct_full = max(min(65536 // 128, t), 1)
+    ct_small = max(min(64, ct_full // 2), 1)
+    ct_mid = max(min(3 * ct_small, ct_full // 2), 1)
+    return sorted({ct_small, ct_mid, ct_full})
+
+
+def phase_kernels(data, vdata):
+    """Each kernel against its plain version at every shape the headline
+    and volume runs can launch it with. Returns {name: {shape: entry}}; a
+    shape is the key the wrapper tallies in ``LAUNCH_SHAPES`` (K1:
+    (slabs, trange), its tile count follows the query layout)."""
+    from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
+    from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
+        build_zgrid,
+        grouped_tile_order_device,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_brute
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
-        sweep_results,
         sweep_window,
+        zcol_window,
     )
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         estimate_grid_params,
     )
 
     dev = torch.device(DEVICE)
+    tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
+    results = {"colsweep_fused": {}, "colsweep": {}, "brute_nn": {}}
+
+    # Terrain: the slab sweep.
     tgt_local = data["tgt_local"]
     tgt_dev = torch.as_tensor(tgt_local, device=dev)
     est = estimate_grid_params(tgt_local)
@@ -200,10 +310,9 @@ def phase_kernels(data):
     Rc = max(R // 4, 8)
     slabs = 4
     m = len(tgt_local)
-    print(f"[3 kernels] fine grid R={R} trange={trange}; coarse grid "
-          f"R={Rc} trange={ctrange}; target {m} points", flush=True)
+    print(f"[3 kernels] terrain: fine grid R={R} trange={trange}; coarse "
+          f"grid R={Rc} trange={ctrange}; target {m} points", flush=True)
     rng = np.random.default_rng(7)
-    results = {"colsweep_fused": {}, "colsweep": {}, "brute_nn": {}}
 
     # K1: the fine sweep, queries = target + N(0, 0.02), x-group layout.
     q = torch.as_tensor(
@@ -213,65 +322,25 @@ def phase_kernels(data):
                                         resolution=R)
     win = sweep_window(q[rows], grid, resolution=R, tile_q=128, slabs=slabs,
                        trange=trange, fused=True)
-    t = win.base.shape[0]
-    args = (win.base, win.q32, grid.tgt_t)
-    kw = dict(slabs=slabs, trange=trange, fused=True, slack=win.slack)
-    v = win.slack.long()
-    lens = torch.clamp(torch.minimum(v >> 7, trange - (v & 127)), min=0)
+    _sweep_k1(results, win, grid.tgt_t, slabs, trange, f"{tpu}:1165")
 
-    def compare_sweep(out_k, out_p):
-        err, ties = _compare_sweeps(out_k, out_p)
-        return err, f", ties {ties}"
-
-    def compare_k1(out_k, out_p):
-        err, note = compare_sweep(out_k, out_p)
-        cert_k = sweep_results(out_k, win, torch.float32)[3]
-        cert_p = sweep_results(out_p, win, torch.float32)[3]
-        check(torch.equal(cert_k, cert_p), "K1 certified differs from plain")
-        return err, note + f", certified {float(cert_k.float().mean()):.6f}"
-
-    entry = _timed_pair(
-        f"K1 colsweep_fused {t} tiles x {slabs} slots, trange {trange}",
-        lambda: colsweep(*args, **kw), lambda: colsweep_plain(*args, **kw),
-        compare_k1, int(lens.sum()) * 128,
-        t * 128 * 12 + t * slabs * 8 + m * 12 + t * 8 * 128 * 4)
-    entry["shape"] = f"{t} tiles x {slabs} slots, trange {trange}"
-    results["colsweep_fused"][(slabs, trange)] = entry
-
-    # K2: the coarse repair re-sweep at each stage size of the repair
-    # chain (nn_colsweep_exact's ct_small, ct_mid and ct_full at the
-    # default 65536-query budget), queries moved ~1.2 fine cells so that
-    # many fine tiles decertify. The work does not depend on the data.
-    ct_full = max(min(65536 // 128, t), 1)
-    ct_small = max(min(64, ct_full // 2), 1)
-    ct_mid = max(min(3 * ct_small, ct_full // 2), 1)
-    cell = float(grid.cell_size)
-    n2 = ct_full * 128
-    idx = rng.choice(m, n2, replace=False)
+    # K2: the coarse repair re-sweep at each stage size of the repair chain.
+    cts = _stage_tiles(win.base.shape[0])
+    n2 = cts[-1] * 128
     q2 = torch.as_tensor(
-        tgt_local[idx] + rng.uniform(-1.2 * cell, 1.2 * cell,
-                                     (n2, 3)).astype(np.float32),
+        _repair_queries(tgt_local, float(grid.cell_size), n2, rng),
         device=dev)
     rows2, _ = grouped_tile_order_device(q2, grid.origin, grid.cell_size,
                                          resolution=R)
     win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc,
                         tile_q=128, slabs=slabs, trange=ctrange, fused=False)
-    kw = dict(slabs=slabs, trange=ctrange, fused=False)
-    for ct in sorted({ct_small, ct_mid, ct_full}):
-        args = (win2.base[:ct].contiguous(),
-                win2.q32[:ct * 128].contiguous(), coarse.tgt_t)
-        entry = _timed_pair(
-            f"K2 colsweep {ct} tiles x {slabs} slabs, trange {ctrange}",
-            lambda: colsweep(*args, **kw),
-            lambda: colsweep_plain(*args, **kw), compare_sweep,
-            ct * slabs * ctrange * 128,
-            ct * 128 * 12 + ct * slabs * 4 + m * 12 + ct * 8 * 128 * 4)
-        entry["shape"] = f"{ct} tiles x {slabs} slabs, trange {ctrange}"
-        results["colsweep"][(ct, slabs, ctrange)] = entry
+    _sweep_k2(results, win2, coarse.tgt_t, slabs, ctrange, cts,
+              f"{tpu}:1025")
 
     # K3 at the coarse level's shape (stride 34) and at the repair chain's
     # brute stages (bt_small and bt tiles of 128 queries at the default
-    # 4096-query batch) against the whole target.
+    # 4096-query batch) against the whole target. The volume run launches
+    # K3 at these same shapes.
     stride = -(-m // HEADLINE_KW["coarse_max_points"])
     bt = 4096 // 128
     bt_small = max(bt // 8, 1)
@@ -299,8 +368,51 @@ def phase_kernels(data):
             lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
             (n_q + n_t) * 12 + n_q * 8,
             library=lambda: cdist_argmin(qq, tt))
-        entry["shape"] = f"{n_q} x {n_t}"
+        entry.update(shape=f"{n_q} x {n_t}", replaces=f"{tpu}:1103")
         results["brute_nn"][(n_q, n_t)] = entry
+
+    # Volume: the z-column sweep on anisotropic cells.
+    tgt_local = vdata["tgt_local"]
+    tgt_dev = torch.as_tensor(tgt_local, device=dev)
+    est = estimate_grid_params(tgt_local)
+    R, ctrange, zrange = est[0], est[2], est[4]
+    fn, (zgrid, coarse), _ = make_pallas_nn_device(
+        tgt_local, target_dev=tgt_dev, est=est)
+    check(fn.layout_group == "xy", "the volume pair did not select zcol")
+    Rc = max(R // 4, 8)
+    cell3 = zgrid.cell_size.cpu().numpy()
+    print(f"[3 kernels] volume: fine z-grid R={R} zrange={zrange} cells "
+          f"{cell3.tolist()}; coarse grid R={Rc} trange={ctrange}; target "
+          f"{len(tgt_local)} points", flush=True)
+    qv = torch.as_tensor(
+        tgt_local + rng.normal(0, 0.02, tgt_local.shape).astype(np.float32),
+        device=dev)
+    rows, _ = grouped_tile_order_device(qv, zgrid.origin, zgrid.cell_size,
+                                        resolution=R, group="xy")
+    win = zcol_window(qv[rows], zgrid, resolution=R, tile_q=128,
+                      zrange=zrange, fused=True)
+    _sweep_k1(results, win, zgrid.tgt_t, 12, zrange, f"{tpu}:1833")
+
+    # K2 on the volume's coarse grid, fed by the fine (x, y)-group layout
+    # as nn_colsweep_exact feeds it.
+    cts = _stage_tiles(win.base.shape[0])
+    n2 = cts[-1] * 128
+    q2 = torch.as_tensor(_repair_queries(tgt_local, cell3, n2, rng),
+                         device=dev)
+    rows2, _ = grouped_tile_order_device(q2, zgrid.origin, zgrid.cell_size,
+                                         resolution=R, group="xy")
+    win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc, tile_q=128,
+                        slabs=4, trange=ctrange, fused=False)
+    _sweep_k2(results, win2, coarse.tgt_t, 4, ctrange, cts, f"{tpu}:1025")
+
+    # K2 as the z-column sweep's slot-wise form (12 unmasked slots), on a
+    # z-grid with a zrange past the fused gate.
+    zg2 = build_zgrid(tgt_dev, zgrid.origin, zgrid.cell_size, resolution=R,
+                      zrange=ZCOL_SLOTWISE)
+    win3 = zcol_window(qv[rows], zg2, resolution=R, tile_q=128,
+                       zrange=ZCOL_SLOTWISE, fused=False)
+    _sweep_k2(results, win3, zg2.tgt_t, 12, ZCOL_SLOTWISE,
+              [SLOTWISE_TILES], f"{tpu}:1833")
     return results
 
 
@@ -309,7 +421,10 @@ def _shape_key(name, shape):
     return shape[1:] if name == "colsweep_fused" else shape
 
 
-def phase_main_path(data, measured):
+def phase_main_path(tag, data, measured, zcol):
+    """One main path at full width: the terrain headline, or with
+    ``zcol`` the uniform box, where the regime gate must pick the
+    z-column sweep."""
     from torch.profiler import ProfilerActivity, profile
 
     from iterativeclosestpoint_tpu_torch import icp_register_multiscale
@@ -322,6 +437,7 @@ def phase_main_path(data, measured):
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
         nn_colsweep,
+        nn_colsweep_z,
     )
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         estimate_grid_params,
@@ -347,23 +463,27 @@ def phase_main_path(data, measured):
     fine = res.final
     check(fine.iterations == iters, f"fine iterations {fine.iterations}")
     best = min(times)
-    print(f"[4 main path] runs: {', '.join(f'{t:.4f}' for t in times)} s; "
+    print(f"[{tag}] runs: {', '.join(f'{t:.4f}' for t in times)} s; "
           f"best {best:.4f} s -> {n * iters / best:.1f} points/s blended; "
           f"launches per run {launches}", flush=True)
     for (name, shape), c in sorted(by_shape.items()):
-        print(f"[4 main path] launches {name} {shape}: {c}")
+        print(f"[{tag}] launches {name} {shape}: {c}")
         check(_shape_key(name, shape) in measured[name],
-              f"the main path launched {name} at {shape}, a shape phase 3 "
+              f"the {tag} run launched {name} at {shape}, a shape phase 3 "
               "did not hold against plain")
     check(launches["colsweep_fused"] > 0, "K1 never launched")
     check(launches["brute_nn"] > 0, "K3 never launched")
+    if zcol:
+        check(any(name == "colsweep_fused" and shape[1] == 12
+                  for name, shape in by_shape),
+              "K1 never launched at 12 z-window slots")
 
     with collect(sync=True) as col:
         icp_register_multiscale(src, tgt, **kw)
     for line in col.lines():
-        print(f"[4 main path] breakdown: {line}")
+        print(f"[{tag}] breakdown: {line}")
     loop_s = col.stages["fine/loop"]
-    print(f"[4 main path] fine loop {loop_s * 1e3 / iters:.4f} ms/iteration, "
+    print(f"[{tag}] fine loop {loop_s * 1e3 / iters:.4f} ms/iteration, "
           f"{n * iters / loop_s:.1f} points/s (synced run)", flush=True)
 
     # One run under torch.profiler: the device's busy time (one stream,
@@ -379,7 +499,7 @@ def phase_main_path(data, measured):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e6  # us -> s
     check(busy > 0, "the profiler saw no device time")
-    print(f"[4 main path] profiled run: {wall:.4f} s wall under the "
+    print(f"[{tag}] profiled run: {wall:.4f} s wall under the "
           f"profiler, {len(kernels)} device kernels, {busy:.4f} s device "
           f"busy; idle share {1 - busy / wall:.4f} against the profiled "
           f"wall, {1 - busy / best:.4f} against the best unprofiled run",
@@ -390,43 +510,49 @@ def phase_main_path(data, measured):
         by_name[e.name] = (t_us + e.device_time, c + 1)
     for name, (t_us, c) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:12]:
-        print(f"[4 main path] device {t_us / 1e3:10.4f} ms {c:6d} "
+        print(f"[{tag}] device {t_us / 1e3:10.4f} ms {c:6d} "
               f"launches  {name[:100]}")
 
     pts = torch.as_tensor(src, dtype=torch.float64)
     err = float(registration_error(torch.as_tensor(fine.transform),
                                    torch.as_tensor(T_true), pts))
-    print(f"[4 main path] rmse {fine.rmse:.6f}, stop {fine.message!r}, "
+    print(f"[{tag}] rmse {fine.rmse:.6f}, stop {fine.message!r}, "
           f"coarse {res.levels[0][1].iterations} iterations, "
-          f"registration_error vs T_true {err:.6f} m (not gated: "
-          f"point-to-point stalls on this terrain)", flush=True)
+          f"registration_error vs T_true {err:.6f} m (not gated)",
+          flush=True)
 
-    # Exactness at the final pose: certified fraction of the fine sweep,
-    # and the exact chain's distances against a k-d tree.
+    # Exactness at the final pose: certified fraction of the fine sweep
+    # over real rows, and the exact chain's distances against a k-d tree.
     dev = torch.device(DEVICE)
     offset, tgt_local = data["offset"], data["tgt_local"]
     tgt_dev = torch.as_tensor(tgt_local, device=dev)
     est = estimate_grid_params(tgt_local)
     nn_fn, state, R = make_pallas_nn_device(tgt_local, target_dev=tgt_dev,
                                             est=est)
+    check((nn_fn.layout_group == "xy") == zcol,
+          f"regime gate picked layout {nn_fn.layout_group!r}")
     T_loc = torch.as_tensor(_rebase_transform(fine.transform, -offset),
                             dtype=torch.float32, device=dev)
     q, _, w = _prep_fine_source(
         torch.as_tensor(data["src_local"], device=dev), T_loc,
-        state[0].origin, state[0].cell_size, resolution=R)
+        state[0].origin, state[0].cell_size, resolution=R,
+        group=nn_fn.layout_group)
     real = w > 0
-    cert = nn_colsweep(q, state[0], resolution=R, slabs=4, trange=est[1],
-                       fused=use_fused_sweep(4, est[1]))[3]
+    if zcol:
+        cert = nn_colsweep_z(q, state[0], resolution=R, zrange=est[4])[3]
+    else:
+        cert = nn_colsweep(q, state[0], resolution=R, slabs=4,
+                           trange=est[1], fused=use_fused_sweep(4, est[1]))[3]
     frac = float(cert[real].float().mean())
     _, d = nn_fn(q, tgt_dev, state)
     qh = q[real].cpu().numpy().astype(np.float64)
     d_ref, _ = cKDTree(tgt_local.astype(np.float64)).query(qh, workers=-1)
     gap = float(np.abs(d[real].cpu().numpy() - d_ref).max())
-    print(f"[4 main path] final pose: certified {frac:.6f} of {len(qh)} "
-          f"queries at the fine level; max |dist - cKDTree| {gap:.3e} m",
-          flush=True)
+    print(f"[{tag}] final pose: certified {frac:.6f} of {len(qh)} "
+          f"real queries at the fine level ({q.shape[0]} laid out); max "
+          f"|dist - cKDTree| {gap:.3e} m", flush=True)
     check(gap <= 1e-6, f"final-pose NN not exact: {gap}")
-    return launches, by_shape
+    return by_shape
 
 
 def phase_repair():
@@ -479,30 +605,56 @@ def phase_repair():
 
 def phase_card_vs_cpu():
     from iterativeclosestpoint_tpu_torch import icp_register_multiscale
-    from iterativeclosestpoint_tpu_torch.utils.synth import (
-        make_registration_pair,
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
+        make_pallas_nn_device,
     )
 
-    src, tgt, _ = make_registration_pair(n=CARD_CPU_N, seed=95,
-                                         noise_sigma=0.01)
-    kw = dict(coarse_max_points=10_000, max_iterations=15,
-              nn_backend="pallas", return_registered=False)
-    t0 = time.perf_counter()
-    card = icp_register_multiscale(src, tgt, device=DEVICE, **kw)
-    t1 = time.perf_counter()
-    cpu = icp_register_multiscale(src, tgt, device="cpu", **kw)
-    t2 = time.perf_counter()
-    levels_card = [(s, r.iterations, r.stop_reason) for s, r in card.levels]
-    levels_cpu = [(s, r.iterations, r.stop_reason) for s, r in cpu.levels]
-    Ta, Tb = card.transform, cpu.transform
-    err = float(np.linalg.norm(
-        (src @ Ta[:3, :3].T + Ta[:3, 3]) - (src @ Tb[:3, :3].T + Tb[:3, 3]),
-        axis=1).max())
-    print(f"[6 card vs cpu] {CARD_CPU_N} points: card {levels_card} in {t1 - t0:.3f} s, "
-          f"cpu {levels_cpu} in {t2 - t1:.3f} s, registration_error "
-          f"{err:.3e} m", flush=True)
-    check(levels_card == levels_cpu, "iteration counts or stop codes differ")
-    check(err <= 1e-4, f"card and cpu disagree: {err} m")
+    cases = [
+        ("terrain", dict(n=CARD_CPU_N, seed=95, noise_sigma=0.01),
+         dict(max_iterations=15)),
+        # The uniform box selects the z-column sweep; fine iterations are
+        # capped because the CPU runs K1's plain version over 12 slots.
+        ("uniform box", dict(n=BOX_N, seed=7, noise_sigma=0.02,
+                             kind="uniform", extent=100.0),
+         dict(max_iterations=10)),
+    ]
+    for label, config, extra in cases:
+        data = make_data(config)
+        src, tgt = data["src"], data["tgt"]
+        kw = dict(coarse_max_points=10_000, nn_backend="pallas",
+                  return_registered=False, **extra)
+        layouts = [make_pallas_nn_device(data["tgt_local"], device=d)[0]
+                   .layout_group for d in (DEVICE, "cpu")]
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        card = icp_register_multiscale(src, tgt, device=DEVICE, **kw)
+        t1 = time.perf_counter()
+        by_shape = dict(sk.LAUNCH_SHAPES)
+        cpu = icp_register_multiscale(src, tgt, device="cpu", **kw)
+        t2 = time.perf_counter()
+        levels_card = [(s, r.iterations, r.stop_reason)
+                       for s, r in card.levels]
+        levels_cpu = [(s, r.iterations, r.stop_reason)
+                      for s, r in cpu.levels]
+        Ta, Tb = card.transform, cpu.transform
+        err = float(np.linalg.norm(
+            (src @ Ta[:3, :3].T + Ta[:3, 3])
+            - (src @ Tb[:3, :3].T + Tb[:3, 3]), axis=1).max())
+        k1 = sorted(sh for nm, sh in by_shape if nm == "colsweep_fused")
+        print(f"[6 card vs cpu] {label}, {len(src)} points, layouts "
+              f"{layouts}, card K1 shapes {k1}: card {levels_card} in "
+              f"{t1 - t0:.3f} s, cpu {levels_cpu} in {t2 - t1:.3f} s, "
+              f"registration_error {err:.3e} m", flush=True)
+        want = "xy" if config.get("kind") == "uniform" else "x"
+        check(layouts == [want, want],
+              f"{label}: regime gate picked {layouts}, expected {want}")
+        if want == "xy":
+            check(any(sh[1] == 12 for sh in k1),
+                  f"{label}: K1 never launched at 12 slots on the card")
+        check(levels_card == levels_cpu,
+              f"{label}: iteration counts or stop codes differ")
+        check(err <= 1e-4, f"{label}: card and cpu disagree: {err} m")
 
 
 def main() -> int:
@@ -511,23 +663,19 @@ def main() -> int:
               "drives the port on an NVIDIA card", file=sys.stderr)
         return 1
     from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
-    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
-    from iterativeclosestpoint_tpu_torch.utils.synth import (
-        make_registration_pair,
-    )
 
     t_start = time.perf_counter()
     resolve_device(None)
     name, smi = phase_device()
     phase_build()
 
-    src, tgt, T_true = make_registration_pair(**HEADLINE)
-    offset = center_offset(tgt)
-    data = dict(src=src, tgt=tgt, T_true=T_true, offset=offset,
-                src_local=(src - offset).astype(np.float32),
-                tgt_local=(tgt - offset).astype(np.float32))
-    measured = phase_kernels(data)
-    launches, by_shape = phase_main_path(data, measured)
+    data = make_data(HEADLINE)
+    vdata = make_data(VOLUME)
+    measured = phase_kernels(data, vdata)
+    paths = {
+        "headline": phase_main_path("4 main path", data, measured, False),
+        "volume": phase_main_path("4b volume", vdata, measured, True),
+    }
     phase_repair()
     phase_card_vs_cpu()
 
@@ -540,20 +688,24 @@ def main() -> int:
             "library_ms")
     entries = []
     for name_k, src_file, line in table:
-        # Each shape held in phase 3, with its launches in the headline
-        # run; the entry's own numbers are those of its most launched one.
+        # Each shape held in phase 3, with its launches in each main path;
+        # the entry's own numbers are those of its most launched shape.
         shapes = []
         for key, k in measured[name_k].items():
-            n_k = sum(c for (nm, sh), c in by_shape.items()
-                      if nm == name_k and _shape_key(nm, sh) == key)
-            shapes.append(dict(shape=k["shape"], launches=n_k,
+            per_path = {
+                p: sum(c for (nm, sh), c in by_shape.items()
+                       if nm == name_k and _shape_key(nm, sh) == key)
+                for p, by_shape in paths.items()}
+            shapes.append(dict(shape=k["shape"], replaces=k["replaces"],
+                               launches=sum(per_path.values()),
+                               launches_by_path=per_path,
                                **{f: k[f] for f in keys}))
         top = max(shapes, key=lambda e: e["launches"])
         entries.append({
             "name": name_k, "route": "cuda",
             "source": f"iterativeclosestpoint_tpu_torch/csrc/{src_file}",
             "replaces": f"iterativeclosestpoint_tpu/ops/pallas_nn.py:{line}",
-            "launches": launches[name_k],
+            "launches": sum(e["launches"] for e in shapes),
             **{f: top[f] for f in keys}, "shape": top["shape"],
             "shapes": shapes, "passed": True,
         })

@@ -2,8 +2,9 @@
 
 ICP has no weights; what decides the computation is the NN grid
 (``PallasGrid``: ``tgt_t``, ``col_start``, ``origin``, ``cell_size``,
-``bbox_hi``), the fine query layout (``rows`` and ``weight``, plain
-arrays) and the convergence carry (``T_cum``, ``prev_error``,
+``bbox_hi``; the volume regime's ``ZPallasGrid`` has ``cell_start`` in
+place of ``col_start`` and may have per-axis cells), the fine query
+layout (``rows`` and ``weight``, plain arrays) and the convergence carry (``T_cum``, ``prev_error``,
 ``no_improve``). These helpers move the grid and the carry between numpy
 (what the JAX package's arrays convert to) and the port's tensors, so the
 same grid can feed both sweeps.
@@ -14,26 +15,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from iterativeclosestpoint_tpu_torch.ops.sweep_grid import PallasGrid
+from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
+    PallasGrid,
+    ZPallasGrid,
+)
 
-_GRID_DTYPES = {
-    "tgt_t": np.float32, "col_start": np.int32, "origin": np.float32,
-    "cell_size": np.float32, "bbox_hi": np.float32,
-}
+
+def _dtype(field):
+    return np.int32 if field in ("col_start", "cell_start") else np.float32
+
+
+def _from_numpy(cls, d, device):
+    return cls(**{
+        k: torch.as_tensor(np.array(d[k], dtype=_dtype(k)), device=device)
+        for k in cls._fields
+    })
 
 
 def grid_from_numpy(d: dict, device) -> PallasGrid:
     """A grid level from its fields as numpy arrays (e.g. a JAX
     ``PallasGrid`` converted field by field)."""
-    return PallasGrid(**{
-        k: torch.as_tensor(np.array(d[k], dtype=dt), device=device)
-        for k, dt in _GRID_DTYPES.items()
-    })
+    return _from_numpy(PallasGrid, d, device)
 
 
-def grid_to_numpy(grid: PallasGrid) -> dict:
-    """The inverse of ``grid_from_numpy``."""
-    return {k: getattr(grid, k).cpu().numpy() for k in _GRID_DTYPES}
+def zgrid_from_numpy(d: dict, device) -> ZPallasGrid:
+    """A z-column grid from its fields as numpy arrays (e.g. a JAX
+    ``ZPallasGrid`` converted field by field)."""
+    return _from_numpy(ZPallasGrid, d, device)
+
+
+def grid_to_numpy(grid: "PallasGrid | ZPallasGrid") -> dict:
+    """The inverse of ``grid_from_numpy`` and ``zgrid_from_numpy``."""
+    return {k: getattr(grid, k).cpu().numpy() for k in grid._fields}
+
+
+zgrid_to_numpy = grid_to_numpy
 
 
 def carry_from_numpy(T_cum, prev_error, no_improve, *, dtype, device):

@@ -1,8 +1,9 @@
 """The slab sweep's target grid and query layout, built on the device.
 
 Counterpart of ``_build_grid_dev`` (:409), ``_build_grids_dev`` (:476),
-``grouped_tile_order_device`` (:516) and ``PallasGrid`` (:61) in the JAX
-package's ``ops/pallas_nn.py``:
+``_build_zgrid_dev`` (:1630), ``_build_zgrids_dev`` (:498),
+``grouped_tile_order_device`` (:516), ``PallasGrid`` (:61) and
+``ZPallasGrid`` (:77) in the JAX package's ``ops/pallas_nn.py``:
 
 * the target is stable-sorted by x-major cell id ((cx·R)+cy)·R+cz and
   stored transposed as ``tgt_t`` (8, M + trange): rows 0-2 are x, y, z,
@@ -10,9 +11,14 @@ package's ``ops/pallas_nn.py``:
   a slab read of ``trange`` rows from any base ≤ M stays in bounds;
 * ``col_start`` is the (R²+1,) CSR at (x, y)-column granularity: a slab
   (one x-cell, a y-span, all z) is one contiguous row range;
-* queries are laid out in x-group-aligned tiles of 128: sorted by cell
-  id, each x-cell group padded to a tile multiple by replicating its last
-  query (weight 0), so no tile crosses an x boundary.
+* the volume regime's ``ZPallasGrid`` has the same sorted layout with
+  ``zrange`` tail columns and the full (R³+1,) CSR ``cell_start``, so a
+  tile can read just the z-window of each (x, y) column; its cells may be
+  anisotropic (``cell_size`` of shape (3,));
+* queries are laid out in group-aligned tiles of 128: sorted by cell id,
+  each x-cell group ("x", the slab sweep) or (x, y)-cell group ("xy", the
+  z-column sweep) padded to a tile multiple by replicating its last query
+  (weight 0), so no tile crosses a group boundary.
 """
 
 from __future__ import annotations
@@ -34,19 +40,31 @@ class PallasGrid(NamedTuple):
     bbox_hi: torch.Tensor    # (3,) f32 true target bbox max (same frame)
 
 
+class ZPallasGrid(NamedTuple):
+    """The volume regime's grid level (the JAX package's ``ZPallasGrid``;
+    same fields)."""
+
+    tgt_t: torch.Tensor       # (8, M + zrange) f32, cell-sorted, transposed
+    cell_start: torch.Tensor  # (R³+1,) int32 CSR offsets per cell
+    origin: torch.Tensor      # (3,) f32 grid origin (target bbox min)
+    cell_size: torch.Tensor   # () or (3,) f32, per-axis cells
+    bbox_hi: torch.Tensor     # (3,) f32 true target bbox max (same frame)
+
+
 def cell_coords(points: torch.Tensor, origin: torch.Tensor,
                 cell_size: torch.Tensor, resolution: int) -> torch.Tensor:
     """(N, 3) int32 cell coordinates, truncated toward zero and clipped to
-    [0, R-1] (the JAX ``astype(int32)`` + ``clip``)."""
+    [0, R-1] (the JAX ``astype(int32)`` + ``clip``). ``cell_size`` is a
+    scalar or a per-axis (3,) tensor."""
     c = ((points - origin[None, :]) / cell_size).to(torch.int32)
     return torch.clamp(c, 0, resolution - 1)
 
 
-def build_grid(target: torch.Tensor, origin: torch.Tensor,
-               cell_size: torch.Tensor, *, resolution: int,
-               trange: int) -> PallasGrid:
-    """Stable cell sort, (R²+1) column CSR, far padding and true bbox max,
-    on the target's device."""
+def _sorted_grid(target, origin, cell_size, *, resolution: int, tail: int,
+                 csr_step: int):
+    """Stable cell sort, far padding with ``tail`` columns, the CSR over
+    every ``csr_step``-th cell id and the true bbox max, on the target's
+    device. Returns (tgt_t, csr, origin, cell_size, bbox_hi)."""
     R = resolution
     tgt = target.to(torch.float32)
     org = origin.to(torch.float32)
@@ -54,19 +72,41 @@ def build_grid(target: torch.Tensor, origin: torch.Tensor,
     c = cell_coords(tgt, org, cs, R)
     cid = (c[:, 0] * R + c[:, 1]) * R + c[:, 2]
     cid_sorted, order = torch.sort(cid, stable=True)
-    col_start = torch.searchsorted(
+    # csr[k] = rows with cell id < k·csr_step. The JAX package builds the
+    # R³ CSR by a scatter-add bincount and cumsum; searchsorted over the
+    # sorted ids yields the same int32 array.
+    csr = torch.searchsorted(
         cid_sorted,
-        torch.arange(R * R + 1, dtype=torch.int32, device=tgt.device) * R,
+        torch.arange(R**3 // csr_step + 1, dtype=torch.int32,
+                     device=tgt.device) * csr_step,
     ).to(torch.int32)
 
     m = tgt.shape[0]
-    tt = torch.full((8, m + trange), _FAR, dtype=torch.float32,
+    tt = torch.full((8, m + tail), _FAR, dtype=torch.float32,
                     device=tgt.device)
     tt[0:3, :m] = tgt[order].T
     real = (tgt[:, 0] < _FAR * 0.5)[:, None]
     hi3 = torch.where(real, tgt, torch.full_like(tgt, -_FAR)).amax(dim=0)
-    return PallasGrid(tgt_t=tt, col_start=col_start, origin=org,
-                      cell_size=cs, bbox_hi=hi3)
+    return tt, csr, org, cs, hi3
+
+
+def build_grid(target: torch.Tensor, origin: torch.Tensor,
+               cell_size: torch.Tensor, *, resolution: int,
+               trange: int) -> PallasGrid:
+    """The slab sweep's grid: (R²+1) column CSR, ``trange`` tail columns."""
+    return PallasGrid(*_sorted_grid(target, origin, cell_size,
+                                    resolution=resolution, tail=trange,
+                                    csr_step=resolution))
+
+
+def build_zgrid(target: torch.Tensor, origin: torch.Tensor,
+                cell_size: torch.Tensor, *, resolution: int,
+                zrange: int) -> ZPallasGrid:
+    """The z-column sweep's grid: full (R³+1) cell CSR, ``zrange`` tail
+    columns. Meant for the volume regime's small R (≤ 128)."""
+    return ZPallasGrid(*_sorted_grid(target, origin, cell_size,
+                                     resolution=resolution, tail=zrange,
+                                     csr_step=1))
 
 
 def build_grids(target, origin, cell, cell_c, *, resolution: int,
@@ -79,12 +119,26 @@ def build_grids(target, origin, cell, cell_c, *, resolution: int,
     return fine, coarse
 
 
+def build_zgrids(target, origin, cell3, cell_c, *, resolution: int,
+                 zrange: int, coarse_resolution: int, coarse_trange: int):
+    """The z-column fine grid (per-axis cells ``cell3``) and the x-slab
+    coarse repair grid (cubic cells ``cell_c``) over one target."""
+    fine = build_zgrid(target, origin, cell3, resolution=resolution,
+                       zrange=zrange)
+    coarse = build_grid(target, origin, cell_c,
+                        resolution=coarse_resolution, trange=coarse_trange)
+    return fine, coarse
+
+
 def grouped_tile_order_device(query, origin, cell_size, *, resolution: int,
                               tile_q: int = 128, group: str = "x"):
-    """X-group-aligned query layout at a fixed worst-case length.
+    """Group-aligned query layout at a fixed worst-case length.
 
-    Returns (rows (n_pad,) int64 into ``query``, weight (n_pad,) f32: 1 for
-    real rows, 0 for padding). The length is ``n`` + G·(tile_q−1) rounded
+    ``group``: "x" aligns tiles to x-cell groups (G = R, the slab sweep);
+    "xy" to (x, y)-cell groups (G = R², the z-column sweep, whose tiles
+    then span one column at layout time). Returns (rows (n_pad,) int64
+    into ``query``, weight (n_pad,) f32: 1 for real rows, 0 for
+    padding). The length is ``n`` + G·(tile_q−1) rounded
     up to a tile multiple; output row j belongs to group
     g = searchsorted(out_end, j, right) and replicates the group's last
     real row past its count. Rows past the last group's pad replicate one

@@ -3,14 +3,16 @@
 | kernel | source | replaces (``iterativeclosestpoint_tpu/ops/pallas_nn.py``) |
 | --- | --- | --- |
 | K1 ``colsweep_fused`` | ``csrc/colsweep_fused.cu`` | ``_colsweep_fused_kernel`` :1165 |
-| K2 ``colsweep`` | ``csrc/colsweep.cu`` | ``_colsweep_kernel`` :1025 |
+| K1 as zcol | ``csrc/colsweep_fused.cu`` | ``nn_colsweep_z`` :1692, launched at :1833 with 12 z-window slots |
+| K2 ``colsweep`` | ``csrc/colsweep.cu`` | ``_colsweep_kernel`` :1025 (and zcol's slot-wise form past 24576 lanes) |
 | K3 ``brute_nn`` | ``csrc/brute_nn.cu`` | ``_colsweep_kernel(first_tie=True)`` on a one-cell grid |
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel on the current stream or raises; each
 launch adds one to ``LAUNCHES[name]`` and to ``LAUNCH_SHAPES[(name,
-shape)]``, the shape being (tiles, slabs, trange) for a sweep and
-(queries, targets) for K3. The kernels allocate nothing: the wrappers
+shape)]``, the shape being (tiles, slabs, trange) for a sweep (slabs =
+12 and trange = zrange for the z-column sweep) and (queries, targets)
+for K3. The kernels allocate nothing: the wrappers
 allocate outputs with ``torch.empty`` / ``torch.full``.
 
 Sweep output contract (K1, K2 and their plain version): (t, 8, 128) f32

@@ -1,18 +1,23 @@
 """Exact grid 1-NN: the slab sweep, its certificate and its repair chain.
 
-Counterpart of ``nn_colsweep`` (:1429), ``nn_colsweep_exact`` (:1869),
-``make_pallas_nn_device`` (:764) and ``_pallas_fn`` (:2265) in the JAX
-package's ``ops/pallas_nn.py``. The window, certificate and repair
-bookkeeping are the reference's, written as tensor code; the sweeps
-themselves are the CUDA kernels of ``ops/sweep_kernels.py``.
+Counterpart of ``nn_colsweep`` (:1429), ``nn_colsweep_z`` (:1692),
+``nn_colsweep_exact`` (:1869), ``make_pallas_nn_device`` (:764) and
+``_pallas_fn`` (:2265) in the JAX package's ``ops/pallas_nn.py``. The
+windows, certificates and repair bookkeeping are the reference's, written
+as tensor code; the sweeps themselves are the CUDA kernels of
+``ops/sweep_kernels.py``.
 
-Each tile of 128 queries searches ``slabs`` x-slabs [minx-1 …] × the
-tile's dilated y-span × the full z column, a superset of every query's
-27-neighbourhood. A found distance within the query's distance to the
-edge of its guaranteed window (edges at the grid or target boundary count
-as infinite) certifies the result exact. Uncertified queries go through
-the repair chain: a re-sweep on the 4×-coarser grid, then budgeted brute
-force (K3), then an all-pairs fallback.
+The slab sweep (surface clouds): each tile of 128 queries searches
+``slabs`` x-slabs [minx-1 …] × the tile's dilated y-span × the full z
+column, a superset of every query's 27-neighbourhood. The z-column sweep
+(volume clouds): each tile, aligned to one (x, y) column at layout time,
+searches up to 12 (x, y) columns of its dilated window, each only over
+its dilated z-span, through the full R³ CSR. A found distance within the
+query's distance to the edge of its guaranteed window (edges at the grid
+or target boundary count as infinite) certifies the result exact.
+Uncertified queries go through the repair chain: a slab re-sweep on the
+4×-coarser grid, then budgeted brute force (K3), then an all-pairs
+fallback.
 
 The JAX package gates each repair stage with ``lax.cond`` on a device
 count. Here each gate reads its count to the host (``int(...)``) and the
@@ -33,7 +38,9 @@ from iterativeclosestpoint_tpu_torch.ops.bruteforce import sqrt_rn
 from iterativeclosestpoint_tpu_torch.ops.cellblock import auto_resolution_data
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     PallasGrid,
+    ZPallasGrid,
     build_grids,
+    build_zgrids,
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
     colsweep,
@@ -48,6 +55,11 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
 )
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 from iterativeclosestpoint_tpu_torch.utils.hostmath import bbox
+
+# z-column sweep: (x, y) column slots per tile, the JAX package's default
+# and the only value its callers use. A tile laid out in one column needs
+# at most its 3 × 3 dilated neighbourhood; the rest is room for drift.
+XY_SLOTS = 12
 
 
 def _pad_rows(query, n):
@@ -66,8 +78,60 @@ class SweepWindow(NamedTuple):
     q32: torch.Tensor       # (t·tile_q, 3) f32
     base: torch.Tensor      # (t, slabs) int32 128-aligned row bases
     slack: "torch.Tensor | None"  # (t, slabs) int32 lo | width << 7 (K1)
-    complete: torch.Tensor  # (t·tile_q,) the query's x±1 slabs fit
+    complete: torch.Tensor  # (t·tile_q,) the query's window fits
     radius: torch.Tensor    # (t·tile_q,) f32 certificate radius
+
+
+def _tile_cells(query, grid, R: int, tile_q: int):
+    """Shared front of both windows: f32 queries, (3,) origin and cells,
+    the occupied-range-clamped query cells per tile (t, tile_q, 3), their
+    per-tile min and max, the query offsets from the origin (t, tile_q, 3)
+    and the target's true extent in that frame."""
+    t = query.shape[0] // tile_q
+    q32 = query.to(torch.float32).contiguous()
+    org = grid.origin.to(torch.float32)
+    cs = torch.broadcast_to(grid.cell_size.to(torch.float32), (3,))
+    hi_rel = grid.bbox_hi.to(torch.float32) - org
+    qcell = torch.floor((q32 - org[None, :]) / cs).to(torch.int32)
+    # Clamp to the OCCUPIED cell range per axis (the grid cube spans the
+    # longest axis in every dim; a query past the target's true edge on a
+    # shorter axis would otherwise window only empty cells).
+    occ_hi = torch.clamp(torch.floor(hi_rel / cs).to(torch.int32),
+                         max=R - 1)
+    qcell = torch.minimum(torch.clamp(qcell, min=0), occ_hi[None, :])
+    qc_t = qcell.reshape(t, tile_q, 3)
+    pq = (q32 - org[None, :]).reshape(t, tile_q, 3)
+    return q32, cs, qc_t, qc_t.amin(dim=1), qc_t.amax(dim=1), pq, hi_rel
+
+
+def _edge_dist(p, lo_c, hi_c, cell, hi, R: int):
+    """Distance along one axis from the query coordinate ``p`` to the edge
+    of a window covering cells [lo_c - 1, hi_c + 1]. An edge at or beyond
+    the grid boundary, or strictly beyond the target's true extent ``hi``,
+    is infinitely far."""
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=p.device)
+    r_lo = torch.where(lo_c <= 1, inf, p - (lo_c - 1).to(torch.float32) * cell)
+    r_hi = torch.where(
+        (hi_c >= R - 2) | ((hi_c + 2).to(torch.float32) * cell > hi),
+        inf, (hi_c + 2).to(torch.float32) * cell - p,
+    )
+    return torch.minimum(r_lo, r_hi)
+
+
+def _slot_bases(start, end, m_rows: int, trange: int, fused: bool):
+    """128-aligned row bases and, for K1, the packed (lo | width << 7)
+    slot masks of the row ranges [start, end). ``start`` ≤ M =
+    ``m_rows`` − ``trange``, so ``start − base`` < 128 always fits the
+    7-bit ``lo`` field K1 reads."""
+    base = torch.clamp(start, max=m_rows - trange)
+    base = ((base // 128) * 128).to(torch.int32).contiguous()
+    slack = None
+    if fused:
+        # Dead slots have start = end = 0 → width 0, every row masked.
+        slack = ((start - base)
+                 | (torch.clamp(end - start, max=trange) << 7)).to(
+                     torch.int32).contiguous()
+    return base, slack
 
 
 def sweep_window(query: torch.Tensor, grid: PallasGrid, *, resolution: int,
@@ -78,24 +142,8 @@ def sweep_window(query: torch.Tensor, grid: PallasGrid, *, resolution: int,
     R = resolution
     dev = query.device
     n = query.shape[0]
-    t = n // tile_q
-    m_rows = grid.tgt_t.shape[1]
-
-    q32 = query.to(torch.float32).contiguous()
-    org = grid.origin.to(torch.float32)
-    cs = grid.cell_size.to(torch.float32)
-    qcell = torch.floor((q32 - org[None, :]) / cs).to(torch.int32)
-    # Clamp to the OCCUPIED cell range per axis (the grid cube spans the
-    # longest axis in every dim; a query past the target's true edge on a
-    # shorter axis would otherwise window only empty cells).
-    occ_hi = torch.clamp(
-        torch.floor((grid.bbox_hi.to(torch.float32) - org) / cs).to(
-            torch.int32), max=R - 1)
-    qcell = torch.minimum(torch.clamp(qcell, min=0), occ_hi[None, :])
-
-    qc_t = qcell.reshape(t, tile_q, 3)
-    minc = qc_t.amin(dim=1)  # (t, 3)
-    maxc = qc_t.amax(dim=1)
+    q32, cs, qc_t, minc, maxc, pq, hi_rel = _tile_cells(query, grid, R,
+                                                        tile_q)
 
     # Slab s covers x = minx-1+s, y ∈ [miny-1, maxy+1], all z: one
     # contiguous row range [col_start[x·R+ylo], col_start[x·R+yhi+1]).
@@ -129,28 +177,11 @@ def sweep_window(query: torch.Tensor, grid: PallasGrid, *, resolution: int,
 
     # Certificate radius: distance from the query POINT (unclipped) to the
     # edge of its guaranteed window (x: own ±1 cells; y: the tile's dilated
-    # span; z: unbounded). Edges at/beyond the grid boundary, or strictly
-    # beyond the target's true extent, certify to infinity.
-    pq = (q32 - org[None, :]).reshape(t, tile_q, 3)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
-    hi_rel = grid.bbox_hi.to(torch.float32) - org
-    qx_c = qc_t[..., 0]
-    rx_lo = torch.where(qx_c <= 1, inf,
-                        pq[..., 0] - (qx_c - 1).to(torch.float32) * cs)
-    rx_hi = torch.where(
-        (qx_c >= R - 2) | ((qx_c + 2).to(torch.float32) * cs > hi_rel[0]),
-        inf, (qx_c + 2).to(torch.float32) * cs - pq[..., 0],
-    )
-    my_lo = minc[:, 1:2]
-    my_hi = maxc[:, 1:2]
-    ry_lo = torch.where(my_lo <= 1, inf,
-                        pq[..., 1] - (my_lo - 1).to(torch.float32) * cs)
-    ry_hi = torch.where(
-        (my_hi >= R - 2) | ((my_hi + 2).to(torch.float32) * cs > hi_rel[1]),
-        inf, (my_hi + 2).to(torch.float32) * cs - pq[..., 1],
-    )
-    rx = torch.minimum(rx_lo, rx_hi)
-    ry = torch.minimum(ry_lo, ry_hi)
+    # span; z: unbounded).
+    rx = _edge_dist(pq[..., 0], qc_t[..., 0], qc_t[..., 0], cs[0],
+                    hi_rel[0], R)
+    ry = _edge_dist(pq[..., 1], minc[:, 1:2], maxc[:, 1:2], cs[1],
+                    hi_rel[1], R)
     # Out-of-bbox strengthening: a candidate outside the window must escape
     # it in x or y, and it still lies inside the target bbox, so
     #   radius = min( sqrt(rx² + gy² + gz²), sqrt(ry² + gx² + gz²) ).
@@ -161,16 +192,67 @@ def sweep_window(query: torch.Tensor, grid: PallasGrid, *, resolution: int,
         sqrt_rn((ry * ry + gx * gx) + gz * gz),
     ).reshape(n)
 
-    base = torch.clamp(start, max=m_rows - trange)
-    base = ((base // 128) * 128).to(torch.int32).contiguous()
-    slack = None
-    if fused:
-        # Packed (slack | width << 7); dead slabs have start = end = 0 →
-        # width 0, every row masked.
-        slack = ((start - base)
-                 | (torch.clamp(end - start, max=trange) << 7)).to(
-                     torch.int32).contiguous()
+    base, slack = _slot_bases(start, end, grid.tgt_t.shape[1], trange, fused)
     return SweepWindow(q32, base, slack, query_complete, radius)
+
+
+def zcol_window(query: torch.Tensor, grid: ZPallasGrid, *, resolution: int,
+                tile_q: int, zrange: int, fused: bool) -> SweepWindow:
+    """Per-tile z-window column slots and per-tile certificates for
+    ``query`` in an (x, y)-group layout, whose length is a multiple of
+    ``tile_q`` (``nn_colsweep_z`` :1692-1832 of the JAX package).
+
+    Slot k covers column (x, y) = (lo_x + k // ny, lo_y + k % ny) of the
+    tile's dilated window [min-1, max+1]² and its cells [lo_z, hi_z]: one
+    contiguous row range of the R³ CSR. The tile is complete when every
+    window column fits ``zrange − 128`` rows and the window has at most
+    ``XY_SLOTS`` columns.
+    """
+    R = resolution
+    dev = query.device
+    n = query.shape[0]
+    q32, cs, _qc_t, minc, maxc, pq, hi_rel = _tile_cells(query, grid, R,
+                                                         tile_q)
+    lo = torch.clamp(minc - 1, 0, R - 1)  # (t, 3) window low cells
+    hi = torch.clamp(maxc + 1, 0, R - 1)
+    nx = hi[:, 0] - lo[:, 0] + 1
+    ny = hi[:, 1] - lo[:, 1] + 1
+
+    k = torch.arange(XY_SLOTS, dtype=torch.int32, device=dev)[None, :]
+    ny_c = torch.clamp(ny, min=1)[:, None]
+    dx = torch.div(k, ny_c, rounding_mode="floor")
+    dy = k - dx * ny_c
+    in_win = dx < nx[:, None]
+    xs = torch.clamp(lo[:, 0:1] + dx, 0, R - 1)
+    ys = torch.clamp(lo[:, 1:2] + dy, 0, R - 1)
+    col = (xs * R + ys) * R
+    start = grid.cell_start[(col + lo[:, 2:3]).long()]
+    end = grid.cell_start[(col + hi[:, 2:3] + 1).long()]
+    zero = torch.zeros_like(start)
+    start = torch.where(in_win, start, zero)
+    end = torch.where(in_win, end, zero)
+
+    col_fit = (end - start) <= zrange - 128
+    tile_ok = col_fit.all(dim=1) & (nx * ny <= XY_SLOTS)  # (t,)
+    complete = tile_ok[:, None].expand(-1, tile_q).reshape(n)
+
+    # Certificate radius: distance to the covered window's edge in all
+    # three axes. A candidate outside the window escapes it along some
+    # axis a and still lies in the target bbox, so the escape bound is
+    # sqrt(r_a² + Σ_{b≠a} g_b²); the sum is the JAX package's order,
+    # r_a² + (g_b0² + g_b1²).
+    gap = torch.clamp(torch.maximum(-pq, pq - hi_rel), min=0.0)
+    g2 = gap * gap
+    esc = []
+    for a in range(3):
+        r = _edge_dist(pq[..., a], minc[:, a:a + 1], maxc[:, a:a + 1],
+                       cs[a], hi_rel[a], R)
+        b0, b1 = (b for b in range(3) if b != a)
+        esc.append(sqrt_rn(r * r + (g2[..., b0] + g2[..., b1])))
+    radius = torch.minimum(torch.minimum(esc[0], esc[1]), esc[2]).reshape(n)
+
+    base, slack = _slot_bases(start, end, grid.tgt_t.shape[1], zrange, fused)
+    return SweepWindow(q32, base, slack, complete, radius)
 
 
 def sweep_results(out: torch.Tensor, win: SweepWindow, dtype):
@@ -216,10 +298,49 @@ def nn_colsweep(
     return tuple(x[:n_in] for x in (res if return_tie else res[:4]))
 
 
+def nn_colsweep_z(
+    query: torch.Tensor,
+    grid: ZPallasGrid,
+    *,
+    resolution: int,
+    tile_q: int = 128,
+    zrange: int = 512,
+    return_tie: bool = False,
+):
+    """Z-window column sweep: the volume regime's grid 1-NN.
+
+    ``query`` (N, 3) f32 in an (x, y)-group layout
+    (``grouped_tile_order_device(group="xy")``), any N. Each tile reads up
+    to ``XY_SLOTS`` short z-window runs through the R³ CSR instead of the
+    slab sweep's full z columns. At ``XY_SLOTS·zrange`` ≤ 24576 lanes the
+    slots run through K1 with per-slot lane masks; past it through K2's
+    unmasked slot-wise form, as the JAX package gates it (its gate encodes
+    a TPU VMEM bound; keeping it keeps the two packages on the same kernel
+    and so on the same certified rows). Overlapping K2 slots may show a
+    row twice, which the index-identity tie rule does not count as a tie.
+
+    Left out on purpose: the JAX package's ``chunk`` argument and its
+    ``fused_sweep_chunk`` sizing, which tune the TPU kernel's unrolled
+    VMEM chunk loop; the CUDA kernels stage rows in fixed chunks.
+
+    Returns (matched (N,3), normal (N,3), dist (N,), certified (N,)) and,
+    with ``return_tie``, the tie-decertified rows.
+    """
+    n_in = query.shape[0]
+    query = _pad_rows(query, -(-n_in // tile_q) * tile_q)
+    fused = XY_SLOTS * zrange <= 24576
+    win = zcol_window(query, grid, resolution=resolution, tile_q=tile_q,
+                      zrange=zrange, fused=fused)
+    out = colsweep(win.base, win.q32, grid.tgt_t, slabs=XY_SLOTS,
+                   trange=zrange, fused=fused, slack=win.slack)
+    res = sweep_results(out, win, query.dtype)
+    return tuple(x[:n_in] for x in (res if return_tie else res[:4]))
+
+
 def nn_colsweep_exact(
     query: torch.Tensor,
     target: torch.Tensor,
-    grid: PallasGrid,
+    grid: "PallasGrid | ZPallasGrid",
     coarse_grid: "PallasGrid | None" = None,
     *,
     resolution: int,
@@ -233,9 +354,15 @@ def nn_colsweep_exact(
     brute_batch: int = 4096,
     brute_passes: int = 16,
     global_fallback: bool = True,
+    fine: str = "sweep",
 ):
     """Exact NN: fine sweep → coarse-grid repair → budgeted brute → global
     fallback.
+
+    ``fine="zcol"``: the fine level is the z-column sweep on a
+    ``ZPallasGrid`` (``trange`` is then its ``zrange``; the query layout
+    must be (x, y)-group aligned); the coarse repair grid stays an x-slab
+    ``PallasGrid``.
 
     Only budget overflow with ``global_fallback=False`` leaves rows
     unproven. Repair bookkeeping runs at tile granularity: bad tiles are
@@ -252,10 +379,19 @@ def nn_colsweep_exact(
     n = t * tile_q
     query = _pad_rows(query, n)
 
-    m3, nrm, dist, certified, tie = nn_colsweep(
-        query, grid, resolution=resolution, tile_q=tile_q, slabs=slabs,
-        trange=trange, fused=use_fused_sweep(slabs, trange), return_tie=True,
-    )
+    if fine == "zcol":
+        m3, nrm, dist, certified, tie = nn_colsweep_z(
+            query, grid, resolution=resolution, tile_q=tile_q,
+            zrange=trange, return_tie=True,
+        )
+    elif fine == "sweep":
+        m3, nrm, dist, certified, tie = nn_colsweep(
+            query, grid, resolution=resolution, tile_q=tile_q, slabs=slabs,
+            trange=trange, fused=use_fused_sweep(slabs, trange),
+            return_tie=True,
+        )
+    else:
+        raise ValueError(f"unknown fine kernel {fine!r}")
     q_t = query.reshape(t, tile_q, 3)
     m_t = torch.cat([m3, nrm], dim=1).reshape(t, tile_q, 6)
     d_t = dist.reshape(t, tile_q)
@@ -351,9 +487,10 @@ def nn_colsweep_exact(
 
 def _pallas_fn(resolution: int, coarse_resolution: int, trange: int,
                coarse_trange: int, global_fallback: bool, slabs: int = 4,
-               tile_q: int = 128):
+               tile_q: int = 128, fine: str = "sweep"):
     """The ICP loop's nn_fn: (query, target, (grid, coarse)) →
-    (matched, dist)."""
+    (matched, dist). ``fine="zcol"`` runs the z-column sweep, ``trange``
+    being its ``zrange``."""
 
     def fn(query, target, nn_state):
         grid, coarse = nn_state
@@ -362,12 +499,14 @@ def _pallas_fn(resolution: int, coarse_resolution: int, trange: int,
             resolution=resolution, coarse_resolution=coarse_resolution,
             trange=trange, coarse_trange=coarse_trange,
             global_fallback=global_fallback, slabs=slabs, tile_q=tile_q,
+            fine=fine,
         )
         return m, d
 
-    # The ICP driver reads these to build the matching query layout.
+    # The ICP loop reads these to build the matching query layout: the
+    # z-column sweep needs (x, y)-group tiles, the slab sweep x-groups.
     fn.tile_q = tile_q
-    fn.layout_group = "x"
+    fn.layout_group = "xy" if fine == "zcol" else "x"
     return fn
 
 
@@ -386,9 +525,10 @@ def make_pallas_nn_device(
     Host work is the estimator pass (``estimate_grid_params``, or ``est``
     precomputed) and one bbox sweep; both grid levels are sorted and padded
     on the device of ``target_dev`` (default: ``target_local`` uploaded to
-    ``device``). The kernel-regime gate is the JAX package's; its z-column
-    regime is not ported yet and raises. The grids carry no normals
-    (point-to-plane mode, ROADMAP P10).
+    ``device``). The kernel-regime gate is the JAX package's: volume clouds
+    go to the z-column sweep on anisotropic cells, everything else to the
+    slab sweep. The grids carry no normals (point-to-plane mode, ROADMAP
+    P10).
     """
     target_local = np.asarray(target_local)
     coarse_trange = None
@@ -405,16 +545,16 @@ def make_pallas_nn_device(
         trange_est = (trange if trange is not None
                       else auto_trange(target_local, resolution))
     # Kernel regime: the z-window column sweep wins on volume clouds when
-    # its candidate count (12 slots × zrange) undercuts slabs × trange.
+    # its candidate count (12 slots × zrange, with the (x, y)-group
+    # layout's padding) undercuts slabs × trange.
+    zrange = None
     if trange is None and trange_est >= 2048 and resolution <= 128:
         zr_est = (est_zrange if est_zrange is not None
                   else auto_zrange(target_local, resolution, tile_q=tile_q))
         pad = 1.0 + (resolution**2 * (tile_q - 1) / 2) / max(
             len(target_local), 1)
         if 12 * zr_est * pad < 0.7 * slabs * trange_est:
-            raise NotImplementedError(
-                "the volume regime's z-column sweep is not ported yet "
-                "(ROADMAP P11)")
+            zrange = zr_est
     trange = trange_est
     tmin, tmax = bbox(target_local)
     if target_dev is None:
@@ -425,20 +565,31 @@ def make_pallas_nn_device(
         coarse_trange = _COARSE_TRANGE_CAP
     ext = float((tmax - tmin).max())
     dev = target_dev.device
-    grid, coarse = build_grids(
-        target_dev,
-        torch.as_tensor(tmin, dtype=torch.float32, device=dev),
-        torch.tensor(max(ext / resolution, 1e-9), dtype=torch.float32,
-                     device=dev),
-        torch.tensor(max(ext / coarse_resolution, 1e-9),
-                     dtype=torch.float32, device=dev),
-        resolution=resolution, trange=trange,
-        coarse_resolution=coarse_resolution, coarse_trange=coarse_trange,
-    )
+    origin = torch.as_tensor(tmin, dtype=torch.float32, device=dev)
+    cell_c = torch.tensor(max(ext / coarse_resolution, 1e-9),
+                          dtype=torch.float32, device=dev)
+    levels = dict(resolution=resolution, coarse_resolution=coarse_resolution,
+                  coarse_trange=coarse_trange)
+    if zrange is not None:
+        # Anisotropic cells, per-axis extent / R: cubic cells would starve
+        # flat-box clouds of z resolution.
+        cell3 = np.maximum((tmax - tmin) / resolution, 1e-9)
+        grid, coarse = build_zgrids(
+            target_dev, origin,
+            torch.as_tensor(cell3, dtype=torch.float32, device=dev), cell_c,
+            zrange=zrange, **levels)
+        trange = zrange  # the exact chain reads trange as the z budget
+    else:
+        grid, coarse = build_grids(
+            target_dev, origin,
+            torch.tensor(max(ext / resolution, 1e-9), dtype=torch.float32,
+                         device=dev),
+            cell_c, trange=trange, **levels)
     global_fallback = len(target_local) <= 300_000
     return (
         _pallas_fn(resolution, coarse_resolution, trange, coarse_trange,
-                   global_fallback, slabs=slabs, tile_q=tile_q),
+                   global_fallback, slabs=slabs, tile_q=tile_q,
+                   fine="sweep" if zrange is None else "zcol"),
         (grid, coarse),
         resolution,
     )

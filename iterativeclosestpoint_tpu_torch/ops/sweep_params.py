@@ -119,8 +119,8 @@ def auto_zrange(
 ) -> int:
     """Z-window row budget of the volume regime's column sweep: the
     z-axis analog of ``auto_trange`` on anisotropic (per-axis extent/R)
-    cells. Here it feeds only the kernel-regime gate of
-    ``estimate_grid_params``; the column sweep itself is not ported yet."""
+    cells: the z-column sweep's ``zrange``, and an input of the
+    kernel-regime gate of ``estimate_grid_params``."""
     target = np.asarray(target)
     R = resolution
     tmin, tmax = bbox(target)

@@ -134,14 +134,24 @@ def test_unported_options_raise(option, item):
         icp_register(src, tgt, device="cpu", max_iterations=1, **option)
 
 
+def _volume_box():
+    """The 50k 10:10:1 box of the JAX package's regime test."""
+    rng = np.random.default_rng(0)
+    vol = rng.uniform(-50, 50, (50_000, 3)).astype(np.float32)
+    vol[:, 2] *= 0.2
+    return vol
+
+
 def test_unported_multiscale_and_regime_raise():
-    """Multi-device options raise P15; the kernel-regime gate raises P11 on
-    a volume cloud exactly where the JAX package picks its z-column sweep,
-    and passes a terrain cloud of the same size to the slab sweep."""
+    """Multi-device options raise P15. The kernel-regime gate no longer
+    raises: on a volume cloud both factories pick the z-column sweep with
+    the same (R, zrange) and the same anisotropic z-grid, and a terrain
+    cloud of the same size still gets the slab sweep."""
     from iterativeclosestpoint_tpu.ops.pallas_nn import (
         make_pallas_nn_device as jax_make,
     )
     from iterativeclosestpoint_tpu.utils.synth import make_cloud
+    from iterativeclosestpoint_tpu_torch.ops.sweep_grid import ZPallasGrid
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
     )
@@ -149,13 +159,48 @@ def test_unported_multiscale_and_regime_raise():
     src, tgt, _ = make_registration_pair(n=300, seed=1)
     with pytest.raises(NotImplementedError, match="P15"):
         icp_register_multiscale(src, tgt, device="cpu", mesh=object())
-    rng = np.random.default_rng(0)
-    vol = rng.uniform(-50, 50, (50_000, 3)).astype(np.float32)
-    vol[:, 2] *= 0.2  # the 10:10:1 box of the JAX package's regime test
-    assert jax_make(vol)[0].layout_group == "xy"  # z-column there
-    with pytest.raises(NotImplementedError, match="P11"):
-        make_pallas_nn_device(vol, device="cpu")
+    vol = _volume_box()
+    j_fn, (j_grid, j_coarse, _), j_R = jax_make(vol)
+    t_fn, (t_grid, t_coarse), t_R = make_pallas_nn_device(vol, device="cpu")
+    assert j_fn.layout_group == t_fn.layout_group == "xy"
+    assert isinstance(t_grid, ZPallasGrid) and t_grid.cell_size.shape == (3,)
+    zr = t_grid.tgt_t.shape[1] - len(vol)
+    assert (t_R, zr) == (j_R, j_grid.tgt_t.shape[1] - len(vol)) == (8, 1024)
+    for jg, tg in ((j_grid, t_grid), (j_coarse, t_coarse)):
+        for f in jg._fields:
+            np.testing.assert_array_equal(getattr(tg, f).numpy(),
+                                          np.asarray(getattr(jg, f)),
+                                          err_msg=f)
     ter = make_cloud(50_000, seed=1, kind="terrain", extent=50.0)
     ter = (ter - ter.mean(0)).astype(np.float32)
     assert jax_make(ter)[0].layout_group == "x"
     assert make_pallas_nn_device(ter, device="cpu")[0].layout_group == "x"
+
+
+def test_zcol_exact_chain_on_volume_box_matches_kdtree():
+    """The factory's z-column nn_fn on the 50k box, plain kernels on the
+    CPU: every real row's distance equals a k-d tree's (f64) to 1e-6 m
+    plus 1e-6 relative, f32 coordinates of a box 100 m across."""
+    from scipy.spatial import cKDTree
+
+    from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
+        grouped_tile_order_device,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
+        make_pallas_nn_device,
+    )
+
+    vol = _volume_box()
+    fn, state, R = make_pallas_nn_device(vol, device="cpu")
+    q = torch.as_tensor(vol + np.random.default_rng(1).normal(
+        0, 0.05, vol.shape).astype(np.float32))
+    rows, w = grouped_tile_order_device(q, state[0].origin,
+                                        state[0].cell_size, resolution=R,
+                                        group=fn.layout_group)
+    t = torch.as_tensor(vol)
+    _, d = fn(q[rows], t, state)
+    real = (w > 0).numpy()
+    assert real.sum() == len(vol)
+    qh = q[rows].numpy()[real].astype(np.float64)
+    d_ref, _ = cKDTree(vol.astype(np.float64)).query(qh)
+    np.testing.assert_allclose(d.numpy()[real], d_ref, rtol=1e-6, atol=1e-6)

@@ -20,11 +20,13 @@ from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
 from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     build_grid,
+    build_zgrid,
     grouped_tile_order_device,
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
     nn_colsweep_exact,
     sweep_window,
+    zcol_window,
 )
 from iterativeclosestpoint_tpu_torch.utils.synth import make_cloud
 
@@ -57,6 +59,26 @@ def _setup(dev, n=60_000, R=32, trange=768, dup=False):
     return tgt, t_dev, grid, q_dev[rows]
 
 
+def _zcol_setup(dev, zrange, n=200_000, R=32):
+    """The volume regime's window: a uniform 10:10:2 box on per-axis cells,
+    an (x, y)-group layout and 12 z-window slots per tile."""
+    tgt = make_cloud(n, seed=5, kind="uniform", extent=50.0).astype(
+        np.float32)
+    q = tgt + np.random.default_rng(6).normal(0, 0.05, tgt.shape).astype(
+        np.float32)
+    lo, hi = tgt.min(axis=0).astype(np.float64), tgt.max(axis=0)
+    cell3 = torch.as_tensor(np.maximum((hi - lo) / R, 1e-9),
+                            dtype=torch.float32, device=dev)
+    grid = build_zgrid(torch.as_tensor(tgt, device=dev),
+                       torch.as_tensor(lo, dtype=torch.float32, device=dev),
+                       cell3, resolution=R, zrange=zrange)
+    q_dev = torch.as_tensor(q, device=dev)
+    rows, _ = grouped_tile_order_device(q_dev, grid.origin, grid.cell_size,
+                                        resolution=R, group="xy")
+    return zcol_window(q_dev[rows], grid, resolution=R, tile_q=128,
+                       zrange=zrange, fused=12 * zrange <= 24576), grid
+
+
 def _same(out_k, out_p):
     tie = out_p[:, 7] != 1.0
     assert torch.equal(out_k[:, 7] != 1.0, tie)
@@ -64,13 +86,17 @@ def _same(out_k, out_p):
     assert torch.equal(out_k[:, 0:7][free], out_p[:, 0:7][free])
 
 
-@pytest.mark.parametrize("dup", [False, True])
-def test_k1_fused_matches_plain(card, dup):
-    _, _, grid, q = _setup(card, dup=dup)
-    win = sweep_window(q, grid, resolution=32, tile_q=128, slabs=4,
-                       trange=768, fused=True)
+@pytest.mark.parametrize("case", ["tie_free", "dup", "zcol"])
+def test_k1_fused_matches_plain(card, case):
+    if case == "zcol":  # 12 z-window slots of 512 rows, the volume shape
+        win, grid = _zcol_setup(card, 512)
+        kw = dict(slabs=12, trange=512, fused=True, slack=win.slack)
+    else:
+        _, _, grid, q = _setup(card, dup=case == "dup")
+        win = sweep_window(q, grid, resolution=32, tile_q=128, slabs=4,
+                           trange=768, fused=True)
+        kw = dict(slabs=4, trange=768, fused=True, slack=win.slack)
     args = (win.base, win.q32, grid.tgt_t)
-    kw = dict(slabs=4, trange=768, fused=True, slack=win.slack)
     before = sk.LAUNCHES["colsweep_fused"]
     out_k = sk.colsweep(*args, **kw)
     torch.cuda.synchronize()
@@ -78,13 +104,20 @@ def test_k1_fused_matches_plain(card, dup):
     _same(out_k, sk.colsweep_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("dup", [False, True])
-def test_k2_matches_plain(card, dup):
-    _, _, grid, q = _setup(card, R=8, trange=8192, dup=dup)
-    win = sweep_window(q, grid, resolution=8, tile_q=128, slabs=4,
-                       trange=8192, fused=False)
+@pytest.mark.parametrize("case", ["tie_free", "dup", "zcol"])
+def test_k2_matches_plain(card, case):
+    if case == "zcol":  # zcol's slot-wise form: 12 unmasked slots × 3072
+        win, grid = _zcol_setup(card, 3072)
+        n_t = 256  # a slice of the tiles keeps the plain version short
+        win = win._replace(base=win.base[:n_t].contiguous(),
+                           q32=win.q32[:n_t * 128].contiguous())
+        kw = dict(slabs=12, trange=3072, fused=False)
+    else:
+        _, _, grid, q = _setup(card, R=8, trange=8192, dup=case == "dup")
+        win = sweep_window(q, grid, resolution=8, tile_q=128, slabs=4,
+                           trange=8192, fused=False)
+        kw = dict(slabs=4, trange=8192, fused=False)
     args = (win.base, win.q32, grid.tgt_t)
-    kw = dict(slabs=4, trange=8192, fused=False)
     before = sk.LAUNCHES["colsweep"]
     out_k = sk.colsweep(*args, **kw)
     torch.cuda.synchronize()
