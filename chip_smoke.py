@@ -7,7 +7,8 @@ Run from the repository root with one card visible:
 
 Phases, one or more lines each:
 
-1. device: the card's name and ``nvidia-smi`` name and power limit;
+1. device: the card's name, ``nvidia-smi`` name and power limit, and its
+   maximum SM clock, from which the issue floor below is computed;
 2. build: the three CUDA kernels (``csrc/*.cu``), one nvcc each, together;
 3. kernels against plain, at the main paths' shapes. On the 1M-point
    terrain pair (seed 7): K1 on the fine grid, K2 on the coarse repair
@@ -19,9 +20,16 @@ Phases, one or more lines each:
    stage sizes, and K2 in the z-column sweep's slot-wise form (12 slots ×
    3072 rows, past its 24576-lane gate) on 512 tiles. On rows without an
    exact tie the winner and d² must be bit-identical, and the tie flags
-   equal everywhere. Times are CUDA-event medians of 5 calls; the bound
-   is the larger of bytes / 3.35 TB/s and 9 f32 operations per
-   query–candidate pair / 67 TFLOP/s (the H100 SXM data-sheet peaks);
+   equal everywhere. Times are CUDA-event medians of 5 calls; the
+   data-sheet bound is the larger of bytes / 3.35 TB/s and 9 f32
+   operations per query–candidate pair / 67 TFLOP/s (the H100 SXM
+   data-sheet peaks). That rate counts an FMA as two operations, but the
+   d² contract forbids FMA, so each of the 9 is one instruction issued at
+   128 per SM per clock: the issue floor, pairs · 9 / (SMs · 128 · max SM
+   clock), is about twice the data-sheet bound, and each line gives the
+   share of it the kernel reaches. K2's pairs count each tile's distinct
+   rows (its kernel scans a row that two slab windows share once), and
+   its lines name the CTAs per tile (splits) its wrapper chose;
 4. the main path: ``icp_register_multiscale`` with the headline
    configuration (1M points, coarse_max_points 30k, 15 coarse and 20 fine
    iterations at tolerance 0), one warm-up and 3 timed runs, launch counts
@@ -39,8 +47,9 @@ Phases, one or more lines each:
    (z-column sweep on both devices), multiscale on both, same iteration
    counts and stop codes, registration error ≤ 1e-4 m;
 7. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
-   both main paths, error and times at its most launched shape, and every
-   measured shape under ``shapes`` with its launches per path;
+   both main paths, error, times, data-sheet bound and issue floor at its
+   most launched shape, and every measured shape under ``shapes`` with its
+   launches per path;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -60,6 +69,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, same sheet
 OPS_PER_PAIR = 9             # 3 sub, 3 mul, 2 add, 1 compare
+ISSUE_PER_SM_CLOCK = 128     # f32 instructions an SM issues per clock
 HEADLINE = dict(n=1_000_000, seed=7, noise_sigma=0.02, kind="terrain",
                 extent=100.0)
 HEADLINE_KW = dict(coarse_max_points=30_000, coarse_iterations=15,
@@ -135,17 +145,26 @@ def bound_ms(pairs, nbytes):
                                        else "bytes")
 
 
-def phase_device():
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+def _smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    """The card's name, nvidia-smi's name and power limit, and the issue
+    rate (f32 instructions per second at the maximum SM clock)."""
+    name = torch.cuda.get_device_name(0)
+    smi = _smi("name,power.limit")
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_rate = sms * ISSUE_PER_SM_CLOCK * clock_mhz * 1e6
     print(f"[1 device] {name}; count {torch.cuda.device_count()}; "
-          f"nvidia-smi: {smi}; torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
-    return name, smi
+          f"nvidia-smi: {smi}; max SM clock {clock_mhz:.0f} MHz, {sms} SMs: "
+          f"issue rate {issue_rate:.4e} instructions/s; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    return name, smi, issue_rate
 
 
 def phase_build():
@@ -172,12 +191,12 @@ def _compare_sweeps(out_k, out_p):
     return err, int(tie_k.sum())
 
 
-def _timed_pair(label, kernel, plain, compare, pairs, nbytes,
+def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
                 library=None):
     """Time ``kernel`` and ``plain`` (and ``library``, K3's yardstick) on
     the same inputs, hold kernel against plain with ``compare`` (returns
-    max_abs_err and a note), and compute the bound. Prints one line and
-    returns the entry."""
+    max_abs_err and a note), and compute the data-sheet bound and the
+    issue floor. Prints one line and returns the entry."""
     ms, out_k = cuda_ms(kernel)
     plain_ms, out_p = cuda_ms(plain)
     err, note = compare(out_k, out_p)
@@ -188,11 +207,14 @@ def _timed_pair(label, kernel, plain, compare, pairs, nbytes,
         note += (f", chunked cdist + argmin {lib_ms:.4f} ms (winner "
                  f"agreement {agree:.6f})")
     b, by = bound_ms(pairs, nbytes)
+    floor = pairs * OPS_PER_PAIR / issue_rate * 1e3
     print(f"[3 kernels] {label}: {pairs:.4e} pairs, kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), "
+          f"plain {plain_ms:.4f} ms, issue floor {floor:.4f} ms (reached "
+          f"{floor / ms:.3f}), data-sheet bound {b:.4f} ms ({by}), "
           f"max_abs_err {err}{note}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                max_abs_err=err, library_ms=lib_ms, pairs=pairs)
+                floor_ms=floor, max_abs_err=err, library_ms=lib_ms,
+                pairs=pairs)
 
 
 def _compare_sweep(out_k, out_p):
@@ -200,7 +222,7 @@ def _compare_sweep(out_k, out_p):
     return err, f", ties {ties}"
 
 
-def _sweep_k1(results, win, tgt_t, slabs, trange, replaces):
+def _sweep_k1(results, win, tgt_t, slabs, trange, replaces, issue_rate):
     """K1 against plain on one window (all its tiles), the certificates
     too; keyed (slabs, trange), since its tile count follows the query
     layout."""
@@ -229,32 +251,47 @@ def _sweep_k1(results, win, tgt_t, slabs, trange, replaces):
         lambda: colsweep_plain(*args, **kw), compare_k1,
         int(lens.sum()) * 128,
         t * 128 * 12 + t * slabs * 8 + (tgt_t.shape[1] - trange) * 12
-        + t * 8 * 128 * 4)
+        + t * 8 * 128 * 4, issue_rate)
     entry.update(shape=shape, replaces=replaces)
     results["colsweep_fused"][(slabs, trange)] = entry
 
 
-def _sweep_k2(results, win, tgt_t, slabs, trange, tile_counts, replaces):
+def _distinct_rows(base, trange):
+    """Rows in the union of each tile's slab windows [b, b + trange): the
+    candidates K2 scans once each."""
+    b = torch.sort(base.long(), dim=1).values
+    gaps = torch.clamp(b[:, 1:] - b[:, :-1], max=trange)
+    return int(gaps.sum()) + base.shape[0] * trange
+
+
+def _sweep_k2(results, win, tgt_t, slabs, trange, tile_counts, replaces,
+              issue_rate):
     """K2 against plain on the first ``ct`` tiles of one window for each
-    ``ct``; keyed (ct, slabs, trange). The work does not depend on the
-    data."""
+    ``ct``; keyed (ct, slabs, trange). Pairs count each tile's distinct
+    rows (the union of its slab windows), the work its queries need; the
+    plain version and the TPU kernel sweep every lane, overlaps
+    included."""
     from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
         colsweep,
         colsweep_plain,
+        sweep_splits,
     )
 
     kw = dict(slabs=slabs, trange=trange, fused=False)
     for ct in tile_counts:
         args = (win.base[:ct].contiguous(),
                 win.q32[:ct * 128].contiguous(), tgt_t)
+        splits = sweep_splits(ct, slabs, trange, tgt_t.device)
         shape = f"{ct} tiles x {slabs} slabs, trange {trange}"
+        lanes = ct * slabs * trange * 128
         entry = _timed_pair(
-            f"K2 colsweep {shape}", lambda: colsweep(*args, **kw),
+            f"K2 colsweep {shape} ({splits} splits, {lanes:.4e} lanes)",
+            lambda: colsweep(*args, **kw),
             lambda: colsweep_plain(*args, **kw), _compare_sweep,
-            ct * slabs * trange * 128,
+            _distinct_rows(args[0], trange) * 128,
             ct * 128 * 12 + ct * slabs * 4 + (tgt_t.shape[1] - trange) * 12
-            + ct * 8 * 128 * 4)
-        entry.update(shape=shape, replaces=replaces)
+            + ct * 8 * 128 * 4, issue_rate)
+        entry.update(shape=shape, replaces=replaces, splits=splits)
         results["colsweep"][(ct, slabs, trange)] = entry
 
 
@@ -276,7 +313,7 @@ def _stage_tiles(t):
     return sorted({ct_small, ct_mid, ct_full})
 
 
-def phase_kernels(data, vdata):
+def phase_kernels(data, vdata, issue_rate):
     """Each kernel against its plain version at every shape the headline
     and volume runs can launch it with. Returns {name: {shape: entry}}; a
     shape is the key the wrapper tallies in ``LAUNCH_SHAPES`` (K1:
@@ -322,7 +359,8 @@ def phase_kernels(data, vdata):
                                         resolution=R)
     win = sweep_window(q[rows], grid, resolution=R, tile_q=128, slabs=slabs,
                        trange=trange, fused=True)
-    _sweep_k1(results, win, grid.tgt_t, slabs, trange, f"{tpu}:1165")
+    _sweep_k1(results, win, grid.tgt_t, slabs, trange, f"{tpu}:1165",
+              issue_rate)
 
     # K2: the coarse repair re-sweep at each stage size of the repair chain.
     cts = _stage_tiles(win.base.shape[0])
@@ -335,7 +373,7 @@ def phase_kernels(data, vdata):
     win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc,
                         tile_q=128, slabs=slabs, trange=ctrange, fused=False)
     _sweep_k2(results, win2, coarse.tgt_t, slabs, ctrange, cts,
-              f"{tpu}:1025")
+              f"{tpu}:1025", issue_rate)
 
     # K3 at the coarse level's shape (stride 34) and at the repair chain's
     # brute stages (bt_small and bt tiles of 128 queries at the default
@@ -366,7 +404,7 @@ def phase_kernels(data, vdata):
         entry = _timed_pair(
             f"K3 brute_nn {n_q} x {n_t}", lambda: nn_brute(qq, tt),
             lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
-            (n_q + n_t) * 12 + n_q * 8,
+            (n_q + n_t) * 12 + n_q * 8, issue_rate,
             library=lambda: cdist_argmin(qq, tt))
         entry.update(shape=f"{n_q} x {n_t}", replaces=f"{tpu}:1103")
         results["brute_nn"][(n_q, n_t)] = entry
@@ -391,7 +429,8 @@ def phase_kernels(data, vdata):
                                         resolution=R, group="xy")
     win = zcol_window(qv[rows], zgrid, resolution=R, tile_q=128,
                       zrange=zrange, fused=True)
-    _sweep_k1(results, win, zgrid.tgt_t, 12, zrange, f"{tpu}:1833")
+    _sweep_k1(results, win, zgrid.tgt_t, 12, zrange, f"{tpu}:1833",
+              issue_rate)
 
     # K2 on the volume's coarse grid, fed by the fine (x, y)-group layout
     # as nn_colsweep_exact feeds it.
@@ -403,7 +442,8 @@ def phase_kernels(data, vdata):
                                          resolution=R, group="xy")
     win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc, tile_q=128,
                         slabs=4, trange=ctrange, fused=False)
-    _sweep_k2(results, win2, coarse.tgt_t, 4, ctrange, cts, f"{tpu}:1025")
+    _sweep_k2(results, win2, coarse.tgt_t, 4, ctrange, cts, f"{tpu}:1025",
+              issue_rate)
 
     # K2 as the z-column sweep's slot-wise form (12 unmasked slots), on a
     # z-grid with a zrange past the fused gate.
@@ -412,7 +452,7 @@ def phase_kernels(data, vdata):
     win3 = zcol_window(qv[rows], zg2, resolution=R, tile_q=128,
                        zrange=ZCOL_SLOTWISE, fused=False)
     _sweep_k2(results, win3, zg2.tgt_t, 12, ZCOL_SLOTWISE,
-              [SLOTWISE_TILES], f"{tpu}:1833")
+              [SLOTWISE_TILES], f"{tpu}:1833", issue_rate)
     return results
 
 
@@ -666,12 +706,12 @@ def main() -> int:
 
     t_start = time.perf_counter()
     resolve_device(None)
-    name, smi = phase_device()
+    name, smi, issue_rate = phase_device()
     phase_build()
 
     data = make_data(HEADLINE)
     vdata = make_data(VOLUME)
-    measured = phase_kernels(data, vdata)
+    measured = phase_kernels(data, vdata, issue_rate)
     paths = {
         "headline": phase_main_path("4 main path", data, measured, False),
         "volume": phase_main_path("4b volume", vdata, measured, True),
@@ -684,8 +724,8 @@ def main() -> int:
         ("colsweep", "colsweep.cu", 1025),
         ("brute_nn", "brute_nn.cu", 1103),  # the first_tie=True branch
     ]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+            "max_abs_err", "library_ms")
     entries = []
     for name_k, src_file, line in table:
         # Each shape held in phase 3, with its launches in each main path;
@@ -699,7 +739,9 @@ def main() -> int:
             shapes.append(dict(shape=k["shape"], replaces=k["replaces"],
                                launches=sum(per_path.values()),
                                launches_by_path=per_path,
-                               **{f: k[f] for f in keys}))
+                               **{f: k[f] for f in keys},
+                               **({"splits": k["splits"]} if "splits" in k
+                                  else {})))
         top = max(shapes, key=lambda e: e["launches"])
         entries.append({
             "name": name_k, "route": "cuda",

@@ -38,7 +38,7 @@ _L = ctypes.c_longlong
 # a Python int to 32 bits otherwise).
 _ARGTYPES = {
     "colsweep_fused": [_P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
-    "colsweep": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
+    "colsweep": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
     "brute_nn": [_P, _I, _P, _I, _I, _I, _P, _P],
 }
 

@@ -22,6 +22,14 @@ an exact tie. The winner is the first minimum in scan order (slab by
 slab, row by row). A tie is another row index with exactly the winner's
 d². When no candidate falls below 1e18 the winner rows are 0 and row 6
 holds 1e18.
+
+The kernels cut a tile's scan into contiguous ranges of the scan order
+(K1 and K2 across the warps of a CTA, K2's small stages also across
+CTAs) and join the partial winners with one merge rule, whose tensor
+form is ``merge_best_plain``: the earlier range keeps an equal d², so the
+joined winner is still the first minimum, and the flag is set when the
+two winners are different rows. ``colsweep_plain(splits=S)`` runs the
+plain version the same way.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from iterativeclosestpoint_tpu_torch.ops.bruteforce import (
 
 TILE_Q = 128
 BIG = 1.0e18
+MAX_SLABS = 16  # csrc/sweep.cuh kMaxSlots
 
 LAUNCHES = {"colsweep_fused": 0, "colsweep": 0, "brute_nn": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
@@ -70,16 +79,53 @@ def _launch(name, shape, *args):
     LAUNCH_SHAPES[(name, shape)] += 1
 
 
+def merge_best_plain(a, b):
+    """Join two partial winners (d2, row, tie) of the same queries, ``a``
+    over a contiguous range of the scan order before ``b``'s range: the
+    rule of ``csrc/sweep.cuh::merge_best``. A smaller d² wins with its tie
+    flag; on an equal d² ``a``'s row stays (``b``'s when ``a`` found none,
+    row −1) and the flag is set when either flag is or the two rows
+    differ. The same row in both ranges is not a tie."""
+    ad, ar, at = a
+    bd, br, bt = b
+    take_b = bd < ad
+    eq = ad == bd
+    d2 = torch.where(take_b, bd, ad)
+    row = torch.where(take_b | (eq & (ar < 0)), br, ar)
+    both = (ar >= 0) & (br >= 0) & (ar != br)
+    tie = torch.where(take_b, bt, torch.where(eq, at | bt | both, at))
+    return d2, row, tie
+
+
+def _partial_best(d2, valid, rows):
+    """(d2, row, tie) of each query over a range of lanes: the first
+    minimum, −1 and 1e18 where no valid lane falls below 1e18."""
+    dmin, arg = d2.min(dim=2)
+    win = torch.gather(rows, 1, arg)  # (tb, 128) winner rows
+    found = dmin < BIG
+    tie = found & (
+        (d2 == dmin[:, :, None]) & valid
+        & (rows[:, None, :] != win[:, :, None])
+    ).any(dim=2)
+    return (torch.where(found, dmin, torch.full_like(dmin, BIG)),
+            torch.where(found, win, torch.full_like(win, -1)), tie)
+
+
 def colsweep_plain(base, q, tgt_t, *, slabs: int, trange: int,
-                   fused: bool, slack=None):
+                   fused: bool, slack=None, splits: int = 1):
     """Plain PyTorch version of K1 (``fused=True``) and K2.
 
-    Tiles run in groups so the (tiles, 128, slabs·trange) d² block stays
-    near 2²⁵ floats.
+    With ``splits`` > 1 each tile's slabs·trange lanes are cut into
+    contiguous ranges of ⌈lanes / splits⌉, each range is swept on its own
+    and the partial winners are joined in scan order by
+    ``merge_best_plain``, as the kernels join theirs; the result equals the
+    unsplit sweep on every row. Tiles run in groups so the
+    (tiles, 128, slabs·trange) d² block stays near 2²⁵ floats.
     """
     t = base.shape[0]
     dev = q.device
     L = slabs * trange
+    width = -(-L // splits)
     out = torch.empty((t, 8, TILE_Q), dtype=torch.float32, device=dev)
     lanes = torch.arange(trange, dtype=torch.int64, device=dev)
     step = max(1, (1 << 25) // (TILE_Q * L))
@@ -101,19 +147,28 @@ def colsweep_plain(base, q, tgt_t, *, slabs: int, trange: int,
             d2 = torch.where(valid, d2, torch.full_like(d2, BIG))
         else:
             valid = torch.ones((tb, 1, L), dtype=torch.bool, device=dev)
-        dmin, arg = d2.min(dim=2)
-        win = torch.gather(rows, 1, arg)  # (tb, 128) winner rows
-        found = dmin < BIG
-        tie = found & (
-            (d2 == dmin[:, :, None]) & valid
-            & (rows[:, None, :] != win[:, :, None])
-        ).any(dim=2)
-        ext = tgt_t[0:6][:, win]  # (6, tb, 128)
+        best = None
+        for l0 in range(0, L, width):
+            part = _partial_best(d2[:, :, l0:l0 + width],
+                                 valid[:, :, l0:l0 + width],
+                                 rows[:, l0:l0 + width])
+            best = part if best is None else merge_best_plain(best, part)
+        dmin, win, tie = best
+        found = win >= 0
+        ext = tgt_t[0:6][:, win.clamp(min=0)]  # (6, tb, 128)
         out[t0:t1, 0:6] = torch.where(
             found[None], ext, torch.zeros_like(ext)).permute(1, 0, 2)
-        out[t0:t1, 6] = torch.where(found, dmin, torch.full_like(dmin, BIG))
+        out[t0:t1, 6] = dmin
         out[t0:t1, 7] = torch.where(tie, 2.0, 1.0)
     return out
+
+
+def sweep_splits(tiles: int, slabs: int, trange: int, device) -> int:
+    """CTAs per tile for K2: about 4 CTAs per SM over all tiles, each
+    split at least one staged pass of 1024 rows (1 once the tiles alone
+    fill the card)."""
+    ctas = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(ctas // max(tiles, 1), slabs * trange // 1024))
 
 
 def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
@@ -123,6 +178,9 @@ def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
     ``base`` (t, slabs) int32: 128-aligned row bases, ≤ M; ``slack``
     (t, slabs) int32: lo | (width << 7) per slot (K1 only); ``q``
     (t·128, 3) f32; ``tgt_t`` (8, M + trange) f32. Returns (t, 8, 128).
+    K1's slots must be disjoint row ranges, as the slab and z-column
+    windows are (its kernel counts an equal d² as another row); K2's slabs
+    may overlap. The kernels take at most 16 slabs.
     """
     t = base.shape[0]
     _check("base", base, torch.int32, (t, slabs))
@@ -139,6 +197,9 @@ def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
     tensors = [base, q, tgt_t] + ([slack] if fused else [])
     if any(x.device != q.device for x in tensors):
         raise ValueError("colsweep: all tensors must be on one device")
+    if slabs > MAX_SLABS or tgt_t.shape[1] >= 2**31:
+        raise ValueError(f"colsweep: the kernels take ≤ {MAX_SLABS} slabs "
+                         "and row indices that fit int32")
     # One launch covers every tile. The JAX package split the tile axis
     # into parts (``_sweep_kernel_call``, pallas_nn.py:1385-1421) because
     # its scalar-prefetch base table had to fit the TPU's 1 MB SMEM; each
@@ -152,8 +213,13 @@ def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
                 q.data_ptr(), tgt_t.data_ptr(), stride, t, slabs, trange,
                 out.data_ptr())
     else:
+        splits = sweep_splits(t, slabs, trange, q.device)
+        # Per-split partials (d² bits, row, tie) for the merge launch.
+        part = (torch.empty((3, t, splits, TILE_Q), dtype=torch.int32,
+                            device=q.device) if splits > 1 else None)
         _launch("colsweep", shape, base.data_ptr(), q.data_ptr(),
-                tgt_t.data_ptr(), stride, t, slabs, trange, out.data_ptr())
+                tgt_t.data_ptr(), stride, t, slabs, trange, splits,
+                0 if part is None else part.data_ptr(), out.data_ptr())
     return out
 
 

@@ -125,6 +125,70 @@ def test_k2_matches_plain(card, case):
     _same(out_k, sk.colsweep_plain(*args, **kw))
 
 
+def _odd_slots(dev, stride_mod4, dup, tiles=48, slabs=5, trange=512):
+    """K1 inputs by hand: per tile, ``slabs`` disjoint slots in shuffled
+    order, each inside its own ``trange`` rows, with lo ≠ 0, lengths not a
+    multiple of 4 (some capped at trange − lo), empty slots and a tile
+    whose slots are all empty; the target has M + trange ≡ ``stride_mod4``
+    (mod 4) columns, so its y and z rows are not 16-byte aligned unless
+    that is 0."""
+    rng = np.random.default_rng(7 + stride_mod4)
+    m = slabs * trange + (stride_mod4 - slabs * trange) % 4
+    pts = rng.uniform(0, 10, (m, 3)).astype(np.float32)
+    if dup:
+        pts[m // 2:] = pts[: m - m // 2]
+    tgt_t = torch.full((8, m + trange), 1e6)
+    tgt_t[0:3, :m] = torch.as_tensor(pts).T
+    tgt_t[3:6] = torch.arange(m + trange, dtype=torch.float32)
+    base = np.stack([rng.permutation(slabs) * trange for _ in range(tiles)])
+    lo = rng.integers(1, 128, (tiles, slabs))
+    width = rng.integers(0, trange + 1, (tiles, slabs))
+    width[rng.random((tiles, slabs)) < 0.2] = 0
+    width[3] = 0  # a tile with every slot empty
+    q = pts[rng.integers(0, m, tiles * 128)] + rng.normal(
+        0, 0.05, (tiles * 128, 3)).astype(np.float32)
+    as_dev = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)  # noqa
+    return (as_dev(base, torch.int32), as_dev(q, torch.float32),
+            tgt_t.to(dev), as_dev(lo | (width << 7), torch.int32), slabs,
+            trange)
+
+
+@pytest.mark.parametrize("stride_mod4, dup", [(0, False), (3, False),
+                                              (1, True)])
+def test_k1_odd_slots_match_plain(card, stride_mod4, dup):
+    base, q, tgt_t, slack, slabs, trange = _odd_slots(card, stride_mod4, dup)
+    assert tgt_t.shape[1] % 4 == stride_mod4
+    kw = dict(slabs=slabs, trange=trange, fused=True, slack=slack)
+    out_k = sk.colsweep(base, q, tgt_t, **kw)
+    torch.cuda.synchronize()
+    out_p = sk.colsweep_plain(base, q, tgt_t, **kw)
+    _same(out_k, out_p)
+    assert torch.all(out_k[3, 6] == sk.BIG)  # the empty tile
+    assert torch.all(out_k[3, 7] == 1.0)
+    if dup:
+        assert int((out_p[:, 7] == 2.0).sum()) > 0
+
+
+@pytest.mark.parametrize("tiles, dup", [(64, False), (512, False),
+                                        (64, True)])
+def test_k2_split_matches_plain(card, tiles, dup):
+    """K2 at the repair chain's first stage (64 tiles: split across CTAs
+    and merged) and at its full budget (512 tiles: one CTA per tile)."""
+    _, _, grid, q = _setup(card, n=70_000, R=8, trange=8192, dup=dup)
+    q = q[:tiles * 128].contiguous()
+    win = sweep_window(q, grid, resolution=8, tile_q=128, slabs=4,
+                       trange=8192, fused=False)
+    splits = sk.sweep_splits(tiles, 4, 8192, card)
+    assert (splits > 1) == (tiles == 64)
+    kw = dict(slabs=4, trange=8192, fused=False)
+    args = (win.base, win.q32, grid.tgt_t)
+    before = sk.LAUNCHES["colsweep"]
+    out_k = sk.colsweep(*args, **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["colsweep"] == before + 1
+    _same(out_k, sk.colsweep_plain(*args, **kw))
+
+
 @pytest.mark.parametrize("dup", [False, True])
 def test_k3_matches_plain(card, dup):
     tgt, t_dev, _, q = _setup(card, n=20_000, dup=dup)
