@@ -20,7 +20,15 @@ Phases, one or more lines each:
    stage sizes, and K2 in the z-column sweep's slot-wise form (12 slots ×
    3072 rows, past its 24576-lane gate) on 512 tiles. On rows without an
    exact tie the winner and d² must be bit-identical, and the tie flags
-   equal everywhere. Times are CUDA-event medians of 5 calls; the
+   equal everywhere; K3's indices and distances equal everywhere. Each K3
+   line names the target splits its wrapper chose (``brute_splits``), and
+   a second line gives the kernel at other split counts, from 2 to 48
+   CTAs per SM, whose keys must equal those at the chosen count. Times
+   are CUDA-event medians of 5 wrapper calls, except K3's: its wrapper
+   adds ~15 small torch operations (key decode, distance recomputation)
+   whose host time can exceed the kernel's, so K3's kernel time is that
+   of its launch step (``brute_keys``: key fill and kernel) over 20
+   back-to-back launches, with the wrapper call's time beside it; the
    data-sheet bound is the larger of bytes / 3.35 TB/s and 9 f32
    operations per query–candidate pair / 67 TFLOP/s (the H100 SXM
    data-sheet peaks). That rate counts an FMA as two operations, but the
@@ -80,6 +88,9 @@ VOLUME = dict(n=1_000_000, seed=7, noise_sigma=0.02, kind="uniform",
               extent=100.0)
 ZCOL_SLOTWISE = 3072    # phase 3: a zrange past the 24576-lane K1 gate
 SLOTWISE_TILES = 512    # phase 3: tiles of that slot-wise K2 launch
+# phase 3: K3's split counts timed beside the wrapper's, as CTAs per SM
+# (the scan keeps 6 resident)
+K3_CTAS_PER_SM = (2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32, 48)
 BOX_N = 50_000          # phase 6 uniform box
 REPAIR_N = 250_000      # phase 5 cloud size
 CARD_CPU_N = 60_000     # phase 6 cloud size
@@ -192,14 +203,22 @@ def _compare_sweeps(out_k, out_p):
 
 
 def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
-                library=None):
+                library=None, device_ms=None):
     """Time ``kernel`` and ``plain`` (and ``library``, K3's yardstick) on
     the same inputs, hold kernel against plain with ``compare`` (returns
     max_abs_err and a note), and compute the data-sheet bound and the
-    issue floor. Prints one line and returns the entry."""
+    issue floor. ``device_ms``, where given (K3), is the kernel's own
+    device time: it stands for the kernel, and the wrapper call's CUDA-event
+    time is reported beside it. Prints one line and returns the entry."""
     ms, out_k = cuda_ms(kernel)
+    wrapper = {}
+    if device_ms is not None:
+        wrapper = {"wrapper_ms": ms}
+        ms = device_ms
     plain_ms, out_p = cuda_ms(plain)
     err, note = compare(out_k, out_p)
+    if wrapper:
+        note += f", wrapper call {wrapper['wrapper_ms']:.4f} ms"
     lib_ms = None
     if library is not None:
         lib_ms, lib_out = cuda_ms(library, reps=3)
@@ -214,7 +233,7 @@ def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
           f"max_abs_err {err}{note}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 floor_ms=floor, max_abs_err=err, library_ms=lib_ms,
-                pairs=pairs)
+                pairs=pairs, **wrapper)
 
 
 def _compare_sweep(out_k, out_p):
@@ -295,6 +314,25 @@ def _sweep_k2(results, win, tgt_t, slabs, trange, tile_counts, replaces,
         results["colsweep"][(ct, slabs, trange)] = entry
 
 
+def _k3_kernel_ms(qq, tt, splits, reps=20):
+    """K3's launch step alone at ``splits`` target splits (``brute_keys``:
+    the key fill and the kernel, without the wrapper's decode and distance
+    recomputation): CUDA events around ``reps`` back-to-back launches, per
+    launch. The host enqueues a launch in far less than the kernel runs,
+    so the card stays busy and the host's gaps drop out."""
+    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import brute_keys
+
+    brute_keys(qq, tt, splits)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        brute_keys(qq, tt, splits)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _repair_queries(tgt_local, cell, n, rng):
     """``n`` target points moved up to 1.2 fine cells per axis, so that
     many fine tiles decertify (the coarse repair stages' input)."""
@@ -323,7 +361,11 @@ def phase_kernels(data, vdata, issue_rate):
         build_zgrid,
         grouped_tile_order_device,
     )
-    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_brute
+    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
+        brute_keys,
+        brute_splits,
+        nn_brute,
+    )
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
         sweep_window,
@@ -398,16 +440,35 @@ def phase_kernels(data, vdata, issue_rate):
         check(err == 0.0, f"K3: distances differ from plain: {err}")
         return err, ""
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for qq, tt in shapes:
         n_q, n_t = qq.shape[0], tt.shape[0]
-
+        tiles = -(-n_q // 128)
+        splits = brute_splits(n_q, n_t, sms)
+        # The split rule's evidence: the kernel at other split counts,
+        # whose keys (d² bits and row) must equal those at the chosen one.
+        cands = sorted({max(1, min(n_t // 1024, round(k * sms / tiles)))
+                        for k in K3_CTAS_PER_SM} | {splits})
+        keys = brute_keys(qq, tt, splits)
+        by_splits = {}
+        for s in cands:
+            check(torch.equal(brute_keys(qq, tt, s), keys),
+                  f"K3 at {s} splits: keys differ from {splits} splits")
+            by_splits[s] = _k3_kernel_ms(qq, tt, s)
         entry = _timed_pair(
-            f"K3 brute_nn {n_q} x {n_t}", lambda: nn_brute(qq, tt),
+            f"K3 brute_nn {n_q} x {n_t} ({splits} splits, {tiles * splits} "
+            "CTAs)", lambda: nn_brute(qq, tt),
             lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
             (n_q + n_t) * 12 + n_q * 8, issue_rate,
-            library=lambda: cdist_argmin(qq, tt))
-        entry.update(shape=f"{n_q} x {n_t}", replaces=f"{tpu}:1103")
+            library=lambda: cdist_argmin(qq, tt),
+            device_ms=by_splits[splits])
+        entry.update(shape=f"{n_q} x {n_t}", replaces=f"{tpu}:1103",
+                     splits=splits)
         results["brute_nn"][(n_q, n_t)] = entry
+        print(f"[3 kernels] K3 {n_q} x {n_t} kernel ms by splits (CTAs per "
+              "SM): " + ", ".join(f"{s} ({tiles * s / sms:.2f}): {ms:.4f}"
+                                  for s, ms in by_splits.items()),
+              flush=True)
 
     # Volume: the z-column sweep on anisotropic cells.
     tgt_local = vdata["tgt_local"]
@@ -740,8 +801,8 @@ def main() -> int:
                                launches=sum(per_path.values()),
                                launches_by_path=per_path,
                                **{f: k[f] for f in keys},
-                               **({"splits": k["splits"]} if "splits" in k
-                                  else {})))
+                               **{f: k[f] for f in ("splits", "wrapper_ms")
+                                  if f in k}))
         top = max(shapes, key=lambda e: e["launches"])
         entries.append({
             "name": name_k, "route": "cuda",

@@ -66,9 +66,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
   const int n = st.pre[slabs];
   const int per = (n + splits - 1) / splits;
   const int a = min(n, split * per);
-  const Best b = scan_stream(st, slabs, a, min(n, a + per),
-                             q + (int64_t)tile * kTileQ * 3, tgt_t, stride,
-                             buf);
+  const Best b = scan_stream<true>(st, slabs, a, min(n, a + per),
+                                   q + (int64_t)tile * kTileQ * 3,
+                                   CoordRows{tgt_t, stride}, buf);
   if (splits == 1) {
     write_tile(b, tgt_t, stride, out + (int64_t)tile * 8 * kTileQ);
     return;

@@ -55,9 +55,9 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
     st.pre[s + 1] = max(0, min(v >> 7, trange - lo));
   }
   finish_stream(st, slabs);
-  const Best b = scan_stream(st, slabs, 0, st.pre[slabs],
-                             q + (int64_t)tile * kTileQ * 3, tgt_t, stride,
-                             buf);
+  const Best b = scan_stream<true>(st, slabs, 0, st.pre[slabs],
+                                   q + (int64_t)tile * kTileQ * 3,
+                                   CoordRows{tgt_t, stride}, buf);
   write_tile(b, tgt_t, stride, out + (int64_t)tile * 8 * kTileQ);
 }
 

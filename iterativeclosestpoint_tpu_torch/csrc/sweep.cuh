@@ -1,27 +1,30 @@
 // Shared device code of the sweep kernels (colsweep_fused.cu, colsweep.cu)
 // and the brute kernel (brute_nn.cu).
 //
-// The sweep scan (K1 and K2). A tile's candidates are the rows of its
+// The scan (K1, K2 and K3). A tile's candidates are the rows of its
 // slots, taken slot by slot and row by row: the tile's candidate stream.
-// The kernels hand the scan DISJOINT slot ranges (K1's windows are; K2
+// The sweeps hand the scan DISJOINT slot ranges (K1's windows are; K2
 // clips away rows an earlier slab already showed, which leaves every row's
 // first occurrence in place), so an equal d² in the stream always comes
-// from another row, and the scan needs no row test to flag a tie.
+// from another row, and the scan needs no row test to flag a tie. K3 hands
+// it one slot, a contiguous split of the target's rows, and asks for no
+// tie flag (kTies = false).
 //
 // One CTA of 128 threads takes a tile's 128 queries and a contiguous range
-// of its stream (the whole stream, or one of K2's splits). Each of its 4
-// warps (row groups) scans a contiguous quarter of that range for all 128
-// queries, 4 queries per thread, so each candidate read from shared memory
-// (one broadcast LDS.128 of x, y, z and the row index) serves 4
+// of its stream (the whole stream, or one of K2's or K3's splits). Each of
+// its 4 warps (row groups) scans a contiguous quarter of that range for all
+// 128 queries, 4 queries per thread, so each candidate read from shared
+// memory (one broadcast LDS.128 of x, y, z and the row index) serves 4
 // query–candidate pairs; per pair the scan keeps only a step minimum (see
 // scan_stream). Rows are staged in passes of kChunk rows, kSect per group,
 // by 4-byte cp.async copies into two buffers: pass i + 1 loads while pass
-// i is scanned. 4-byte copies take any tgt_t stride and any slot offset;
-// the y and z rows of tgt_t are 16-byte aligned only when the stride is a
-// multiple of 4, and a packed stream crosses slot boundaries at arbitrary
+// i is scanned. 4-byte copies take any layout: the sweeps' tgt_t (one
+// coordinate per row of the array, CoordRows), whose y and z rows are
+// 16-byte aligned only when the stride is a multiple of 4, and K3's (m, 3)
+// points (PointRows); a packed stream crosses slot boundaries at arbitrary
 // rows anyway. The 4 group partials of each query then merge in scan order
 // through shared memory (merge_best), which keeps the first minimum of the
-// whole range. Occupancy: 33 KB of shared memory per CTA allows 6 CTAs
+// whole range. Occupancy: 33-35 KB of shared memory per CTA allows 6 CTAs
 // (24 warps) per SM; ptxas's register count (under 85) allows them.
 //
 // The winner's coordinates are gathered by row index at the end; the TPU
@@ -118,6 +121,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Where the target keeps coordinate k (0-2: x, y, z) of row r.
+// The sweeps' tgt_t: (8, stride), one coordinate per row of the array.
+struct CoordRows {
+  const float* p;
+  int64_t stride;
+  __device__ __forceinline__ const float* at(int r, int k) const {
+    return p + k * stride + r;
+  }
+};
+
+// K3's target: (m, 3) row-major points.
+struct PointRows {
+  const float* p;
+  __device__ __forceinline__ const float* at(int r, int k) const {
+    return p + 3 * (int64_t)r + k;
+  }
+};
+
 // Stream position p's row, from slot `s` on (s ≤ p's slot).
 __device__ __forceinline__ int stream_row(const Stream& st, int slots, int p,
                                           int& s) {
@@ -130,9 +151,10 @@ __device__ __forceinline__ int stream_row(const Stream& st, int slots, int p,
 // gs = min(b, a + g·pg); its section of `dst` gets positions
 // gs + i·kSect + [0, kSect). A position past ge becomes an x = +inf
 // candidate, whose d² (+inf) never wins and never ties.
-__device__ __forceinline__ void stage_pass(
-    float4* dst, const Stream& st, int slots, int a, int b, int pg, int i,
-    const float* __restrict__ tgt_t, int64_t stride) {
+template <class Rows>
+__device__ __forceinline__ void stage_pass(float4* dst, const Stream& st,
+                                           int slots, int a, int b, int pg,
+                                           int i, Rows rows) {
   for (int e = threadIdx.x; e < kChunk; e += kThreads) {
     const int g = e / kSect;
     const int gs = min(b, a + g * pg);
@@ -142,9 +164,9 @@ __device__ __forceinline__ void stage_pass(
     if (p < ge) {
       int s = 0;
       const int r = stream_row(st, slots, p, s);
-      cp_async4(&c->x, tgt_t + r);
-      cp_async4(&c->y, tgt_t + stride + r);
-      cp_async4(&c->z, tgt_t + 2 * stride + r);
+      cp_async4(&c->x, rows.at(r, 0));
+      cp_async4(&c->y, rows.at(r, 1));
+      cp_async4(&c->z, rows.at(r, 2));
       c->w = __int_as_float(r);
     } else {
       *c = make_float4(__int_as_float(0x7f800000), 0.f, 0.f, 0.f);
@@ -153,24 +175,27 @@ __device__ __forceinline__ void stage_pass(
 }
 
 // Scan stream positions [a, b) for the tile's 128 queries (q_tile: 128 × 3
-// f32). Returns query threadIdx.x's Best over the range. Every thread of
-// the CTA must call it (it holds barriers); `buf` is 2·kChunk float4 of
-// shared memory, reused for the group merge.
+// f32, in device or shared memory). Returns query threadIdx.x's Best over
+// the range. Every thread of the CTA must call it (it holds barriers);
+// `buf` is 2·kChunk float4 of shared memory, reused for the group merge.
 //
 // The scan keeps, per query, the minimum over each step of kUnroll
-// candidates (a tree of fminf), the first step that lowered it and the
-// second smallest step minimum, not the row of every pair: about 9.5
-// instructions per pair (8 f32 arithmetic, 7 per 8 for the tree, 5 per 8
-// for the step's compare, select and two-minimum update, a quarter of a
-// shared load per 8) against the 9 of the issue floor. A second step at the minimum is another row at the
+// candidates (a tree of fminf), the first step that lowered it and, with
+// kTies, the second smallest step minimum, not the row of every pair: about
+// 9.5 instructions per pair with kTies (8 f32 arithmetic, 7 per 8 for the
+// tree, 5 per 8 for the step's compare, select and two-minimum update, a
+// quarter of a shared load per 8) and 9.25 without, against the 9 of the
+// issue floor. A second step at the minimum is another row at the
 // winner's d², a tie (rows are distinct). The winner's row, the first
 // candidate at the minimum, and a tie inside its step come from
 // recomputing that step's kUnroll d² (the same bits) from shared memory at
 // the end of the pass that found it, while the step is still staged.
-__device__ __forceinline__ Best scan_stream(
-    const Stream& st, int slots, int a, int b,
-    const float* __restrict__ q_tile, const float* __restrict__ tgt_t,
-    int64_t stride, float4* buf) {
+// Without kTies the returned tie is false.
+template <bool kTies, class Rows>
+__device__ __forceinline__ Best scan_stream(const Stream& st, int slots,
+                                            int a, int b,
+                                            const float* __restrict__ q_tile,
+                                            Rows rows, float4* buf) {
   const int lane = threadIdx.x & 31;
   const int g = threadIdx.x >> 5;
   float qx[kQ], qy[kQ], qz[kQ], best[kQ], second[kQ];
@@ -192,7 +217,7 @@ __device__ __forceinline__ Best scan_stream(
   const int ge = min(b, gs + pg);
   const int passes = (pg + kSect - 1) / kSect;
   if (passes > 0) {
-    stage_pass(buf, st, slots, a, b, pg, 0, tgt_t, stride);
+    stage_pass(buf, st, slots, a, b, pg, 0, rows);
     cp_async_commit();
   }
   for (int i = 0; i < passes; ++i) {
@@ -200,7 +225,7 @@ __device__ __forceinline__ Best scan_stream(
       // The buffer of pass i + 1 was last read in pass i - 1, which every
       // warp left through the barrier at the end of that pass.
       stage_pass(buf + ((i + 1) & 1) * kChunk, st, slots, a, b, pg, i + 1,
-                 tgt_t, stride);
+                 rows);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -228,7 +253,7 @@ __device__ __forceinline__ Best scan_stream(
           for (int u = 0; u < w; ++u) d[u] = fminf(d[u], d[u + w]);
         }
         step[j] = d[0] < best[j] ? p0 + k : step[j];
-        second[j] = fminf(second[j], fmaxf(best[j], d[0]));
+        if (kTies) second[j] = fminf(second[j], fmaxf(best[j], d[0]));
         best[j] = fminf(best[j], d[0]);
       }
     }
@@ -243,7 +268,7 @@ __device__ __forceinline__ Best scan_stream(
         for (int u = 0; u < kUnroll; ++u) {
           const float4 v = w[u];
           if (sq_dist(qx[j], qy[j], qz[j], v) == best[j]) {
-            tie[j] |= row[j] >= 0;
+            if (kTies) tie[j] |= row[j] >= 0;
             row[j] = row[j] >= 0 ? row[j] : __float_as_int(v.w);
           }
         }
@@ -263,14 +288,14 @@ __device__ __forceinline__ Best scan_stream(
     pr[k] = row[j];
     // d² == kBig on an empty winner is not a tie (the plain versions
     // flag ties only where a candidate fell below kBig).
-    pt[k] = (tie[j] | (second[j] == best[j])) & (row[j] >= 0);
+    if (kTies) pt[k] = (tie[j] | (second[j] == best[j])) & (row[j] >= 0);
   }
   __syncthreads();
   const int t = threadIdx.x;
-  Best m{pd[t], pr[t], pt[t] != 0};
+  Best m{pd[t], pr[t], kTies && pt[t] != 0};
   for (int h = 1; h < kGroups; ++h) {
     const int k = h * kTileQ + t;
-    m = merge_best(m, Best{pd[k], pr[k], pt[k] != 0});
+    m = merge_best(m, Best{pd[k], pr[k], kTies && pt[k] != 0});
   }
   return m;
 }

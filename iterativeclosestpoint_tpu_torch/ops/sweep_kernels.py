@@ -24,18 +24,21 @@ d². When no candidate falls below 1e18 the winner rows are 0 and row 6
 holds 1e18.
 
 The kernels cut a tile's scan into contiguous ranges of the scan order
-(K1 and K2 across the warps of a CTA, K2's small stages also across
-CTAs) and join the partial winners with one merge rule, whose tensor
-form is ``merge_best_plain``: the earlier range keeps an equal d², so the
-joined winner is still the first minimum, and the flag is set when the
-two winners are different rows. ``colsweep_plain(splits=S)`` runs the
-plain version the same way.
+(all three across the warps of a CTA, K2's small stages and K3 also
+across CTAs) and join the partial winners with one merge rule, whose
+tensor form is ``merge_best_plain``: the earlier range keeps an equal d²,
+so the joined winner is still the first minimum, and the flag is set when
+the two winners are different rows. ``colsweep_plain(splits=S)`` runs the
+plain version the same way. K3's CTAs join across target splits by a
+64-bit ``atomicMin`` on (d² bits, row), which keeps the lowest row among
+equal d², the same first minimum.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -48,6 +51,12 @@ from iterativeclosestpoint_tpu_torch.ops.bruteforce import (
 TILE_Q = 128
 BIG = 1.0e18
 MAX_SLABS = 16  # csrc/sweep.cuh kMaxSlots
+MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y (K3's splits)
+# A K3 CTA's fixed cost (query and first-pass staging, group merge,
+# atomics) in rows of scan. chip_smoke.py phase 3 times K3 over split
+# counts; on an H100 its 29,412 x 29,412 sweep fits 130-330 rows, and any
+# value from 100 to 1,000 gives the same splits at the main paths' shapes.
+K3_CTA_SETUP_ROWS = 188
 
 LAUNCHES = {"colsweep_fused": 0, "colsweep": 0, "brute_nn": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
@@ -223,35 +232,58 @@ def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
     return out
 
 
-def brute_splits(n: int, m: int, device) -> int:
-    """Target splits for K3: enough CTAs for ~4 per SM, each split at
-    least one staged chunk of 1024 rows."""
+@functools.lru_cache(maxsize=256)
+def brute_splits(n: int, m: int, sms: int) -> int:
+    """Target splits S for K3 on a card with ``sms`` SMs.
+
+    Every CTA scans ⌈m / S⌉ rows for one tile of queries, so the busiest
+    SM runs ⌈tiles·S / sms⌉ equal CTAs, and the kernel's time goes as
+    ⌈tiles·S / sms⌉ · (⌈m / S⌉ + ``K3_CTA_SETUP_ROWS``). S minimises that,
+    with each split at least one staged pass of 1024 rows and, where the
+    rows allow, at least 3 CTAs per SM (at 1-2 the SM issues slower)."""
     tiles = -(-n // TILE_Q)
-    ctas = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-ctas // tiles), -(-m // 1024)))
+    hi = max(1, min(m // 1024, MAX_GRID_Y))
+    lo = min(hi, -(-3 * sms // tiles))
+    return min(range(lo, hi + 1), key=lambda s: (
+        -(-tiles * s // sms) * (-(-m // s) + K3_CTA_SETUP_ROWS), s))
+
+
+def _check_brute(query, target):
+    _check("query", query, torch.float32)
+    _check("target", target, torch.float32)
+    if query.ndim != 2 or query.shape[1] != 3 or target.ndim != 2 \
+            or target.shape[1] != 3:
+        raise ValueError("nn_brute: query and target must be (N, 3), (M, 3)")
+
+
+def brute_keys(query, target, splits: int):
+    """Launch K3 over ``splits`` contiguous target splits (CUDA tensors
+    only). Returns (N,) int64 keys, (d² bits << 32) | row of each query's
+    first minimum, all ones where no candidate fell below 1e18. The split
+    count never changes the keys."""
+    _check_brute(query, target)
+    if query.device.type != "cuda" or target.device != query.device:
+        raise ValueError("brute_keys: query and target on one CUDA device")
+    n, m = query.shape[0], target.shape[0]
+    if m >= 2**31:
+        raise ValueError("nn_brute: target rows must fit int32")
+    splits = max(1, min(splits, m, MAX_GRID_Y))
+    keys = torch.full((n,), -1, dtype=torch.int64, device=query.device)
+    _launch("brute_nn", (n, m), query.data_ptr(), n, target.data_ptr(), m,
+            splits, -(-m // splits), keys.data_ptr())
+    return keys
 
 
 def nn_brute(query, target):
     """K3: exact 1-NN, first-minimum order. Returns (idx (N,) int64,
     dist (N,)) like ``nn_bruteforce``, its plain version; the distance is
     recomputed from the winner as there."""
-    _check("query", query, torch.float32)
-    _check("target", target, torch.float32)
-    if query.ndim != 2 or query.shape[1] != 3 or target.ndim != 2 \
-            or target.shape[1] != 3:
-        raise ValueError("nn_brute: query and target must be (N, 3), (M, 3)")
+    _check_brute(query, target)
     if query.device.type == "cpu":
         return nn_bruteforce(query, target)
-    if target.device != query.device:
-        raise ValueError("nn_brute: query and target on different devices")
-    n, m = query.shape[0], target.shape[0]
-    if m >= 2**31:
-        raise ValueError("nn_brute: target rows must fit int32")
-    keys = torch.full((n,), -1, dtype=torch.int64, device=query.device)
-    splits = brute_splits(n, m, query.device)
-    rows_per_split = -(-m // splits)
-    _launch("brute_nn", (n, m), query.data_ptr(), n, target.data_ptr(), m,
-            splits, rows_per_split, keys.data_ptr())
+    sms = torch.cuda.get_device_properties(query.device).multi_processor_count
+    keys = brute_keys(query, target,
+                      brute_splits(query.shape[0], target.shape[0], sms))
     # All-ones keys (no candidate below 1e18) map to row 0, the plain
     # version's initial winner.
     idx = torch.where(keys < 0, 0, keys & 0xFFFFFFFF)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _k3_planted import planted
 from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
 from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
@@ -196,6 +197,45 @@ def test_k3_matches_plain(card, dup):
     ik, dk = sk.nn_brute(q, t_dev)
     ip, dp = nn_bruteforce(q, t_dev)
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+# (queries, targets): partial last tiles (n = 1, 100, 129, 29,412), partial
+# steps and passes (m = 5, 1,023, 1,025, 4,099), many splits (512 ×
+# 200,000), and a query ~1e10 m from every target.
+K3_EDGES = {
+    "n1": (1, 3000), "n100": (100, 3000), "n129": (129, 3000),
+    "n29412": (29_412, 29_412), "m5": (300, 5), "m1023": (300, 1023),
+    "m1025": (300, 1025), "m4099": (300, 4099),
+    "many_splits": (512, 200_000), "far": (100, 3000),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_EDGES))
+def test_k3_edges_match_plain(card, case):
+    """K3 at its edges, with exact d² ties planted across every split,
+    warp-quarter, step and pass seam of the wrapper's split layout: equal
+    to the plain version bit for bit, the lower row winning each tie."""
+    n, m = K3_EDGES[case]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits = sk.brute_splits(n, m, sms)
+    if case == "many_splits":
+        assert splits >= 64
+    q, tgt, rows = planted(n, m, splits, seed=n + m)
+    k = min(len(rows), n)
+    if case == "far":
+        q[-1] = (1e10, -1e10, 1e10)
+        k = min(k, n - 1)
+    qd = torch.as_tensor(q, device=card)
+    td = torch.as_tensor(tgt, device=card)
+    before = sk.LAUNCHES["brute_nn"]
+    ik, dk = sk.nn_brute(qd, td)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["brute_nn"] == before + 1
+    ip, dp = nn_bruteforce(qd, td)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert k > 0 and torch.equal(ik[:k].cpu(), torch.as_tensor(rows[:k]))
+    if case == "far":
+        assert int(ik[-1]) == 0
 
 
 def test_exact_chain_on_card_matches_cpu(card):
