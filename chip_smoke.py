@@ -10,34 +10,44 @@ Phases, one or more lines each:
 1. device: the card's name, ``nvidia-smi`` name and power limit, and its
    maximum SM clock, from which the issue floor below is computed;
 2. build: the three CUDA kernels (``csrc/*.cu``), one nvcc each, together;
-3. kernels against plain, at the main paths' shapes. On the 1M-point
-   terrain pair (seed 7): K1 on the fine grid, K2 on the coarse repair
+3. kernels against plain, at every shape the main paths launch. On the
+   1M-point terrain pair (seed 7), on grids that carry the target's
+   cell-PCA normals in rows 3-5 (the plane path's grids; the point paths
+   launch the same shapes): K1 on the fine grid, K2 on the coarse repair
    grid at each stage size of the repair chain (64, 192 and 512 tiles),
    K3 at the coarse-level shape and at the repair chain's brute stages
-   (512 and 4096 queries against the 1M target). On the 1M-point uniform
-   volume pair (seed 7): K1 as the z-column sweep (12 z-window slots of
-   zrange rows), K2 on the volume's coarse repair grid at the same three
-   stage sizes, and K2 in the z-column sweep's slot-wise form (12 slots ×
-   3072 rows, past its 24576-lane gate) on 512 tiles. On rows without an
-   exact tie the winner and d² must be bit-identical, and the tie flags
-   equal everywhere; K3's indices and distances equal everywhere. Each K3
-   line names the target splits its wrapper chose (``brute_splits``), and
-   a second line gives the kernel at other split counts, from 2 to 48
-   CTAs per SM, whose keys must equal those at the chosen count. Times
-   are CUDA-event medians of 5 wrapper calls, except K3's: its wrapper
-   adds ~15 small torch operations (key decode, distance recomputation)
-   whose host time can exceed the kernel's, so K3's kernel time is that
-   of its launch step (``brute_keys``: key fill and kernel) over 20
-   back-to-back launches, with the wrapper call's time beside it; the
-   data-sheet bound is the larger of bytes / 3.35 TB/s and 9 f32
-   operations per query–candidate pair / 67 TFLOP/s (the H100 SXM
-   data-sheet peaks). That rate counts an FMA as two operations, but the
-   d² contract forbids FMA, so each of the 9 is one instruction issued at
-   128 per SM per clock: the issue floor, pairs · 9 / (SMs · 128 · max SM
-   clock), is about twice the data-sheet bound, and each line gives the
-   share of it the kernel reaches. K2's pairs count each tile's distinct
-   rows (its kernel scans a row that two slab windows share once), and
-   its lines name the CTAs per tile (splits) its wrapper chose;
+   (512 and 4096 queries against the 1M target). On the 10M-point terrain
+   pair (seed 7): the same on the fine level's base grid and on its
+   boosted grid (the two-stage plane level, both with normals), and on the
+   555,556-point middle level's own grid (point mode, no normals), K3 at
+   the first coarse level's shape. Where a fine sweep's trange sends it
+   to K2's slot-wise form, K2 is held at the fine layout's tile count. On
+   the 1M-point uniform volume pair (seed 7): K1 as the z-column sweep
+   (12 z-window slots of zrange rows), K2 on the volume's coarse repair
+   grid at the same three stage sizes, and K2 in the z-column sweep's
+   slot-wise form (12 slots × 3072 rows, past its 24576-lane gate) on 512
+   tiles. On rows without an exact tie the winner's rows 0-5 (xyz and
+   normal) and d² must be bit-identical, and the tie flags equal
+   everywhere; K3's indices and distances equal everywhere. Each K3 line
+   names the target splits its wrapper chose (``brute_splits``), and at
+   the 1M shapes a second line gives the kernel at other split counts,
+   from 2 to 48 CTAs per SM, whose keys must equal those at the chosen
+   count. Times are CUDA-event medians of 5 wrapper calls (2 for the
+   plain versions at 10M), except K3's: its wrapper adds ~15 small torch
+   operations (key decode, distance recomputation) whose host time can
+   exceed the kernel's, so K3's kernel time is that of its launch step
+   (``brute_keys``: key fill and kernel) over 20 back-to-back launches,
+   with the wrapper call's time beside it; the library yardstick (chunked
+   ``torch.cdist``) is timed at the 1M shapes only. The data-sheet bound
+   is the larger of bytes / 3.35 TB/s and 9 f32 operations per
+   query–candidate pair / 67 TFLOP/s (the H100 SXM data-sheet peaks).
+   That rate counts an FMA as two operations, but the d² contract forbids
+   FMA, so each of the 9 is one instruction issued at 128 per SM per
+   clock: the issue floor, pairs · 9 / (SMs · 128 · max SM clock), is
+   about twice the data-sheet bound, and each line gives the share of it
+   the kernel reaches. K2's pairs count each tile's distinct rows (its
+   kernel scans a row that two slab windows share once), and its lines
+   name the CTAs per tile (splits) its wrapper chose;
 4. the main path: ``icp_register_multiscale`` with the headline
    configuration (1M points, coarse_max_points 30k, 15 coarse and 20 fine
    iterations at tolerance 0), one warm-up and 3 timed runs, launch counts
@@ -49,15 +59,34 @@ Phases, one or more lines each:
 4b. the volume path: the same, with ``bench.py``'s volume configuration
    (the 1M uniform 10:10:2 box, seed 7, the headline's kwargs), where the
    regime gate picks the z-column sweep: K1 must launch at 12 slots;
+4c. the plane path: the same, with ``bench.py``'s plane row (the headline
+   with ``estimator="plane"``); the breakdown shows the normal estimation
+   as its own stage inside grid_build, and at the final pose every
+   returned normal must equal the target's normal at the winner, bit for
+   bit; the two-stage gate's inputs are printed (at 1M the surface boost
+   already applies, so the fine level is one stage);
+4d. the two-stage plane path at 10M points (``make_registration_pair(n=
+   10_000_000, seed=7, noise_sigma=0.02, kind="terrain", extent=100.0)``,
+   the plane kwargs): the gate's construction guard (R == base, boost at
+   16 points per cell), one warm-up and one timed run, the breakdown of a
+   synced run, ``nn_resolution == 2·base`` and 20 fine iterations, and
+   distances and normals at the final pose on a seeded sample of 200,000
+   real rows against cKDTree;
 5. the repair path: ``icp_register`` at 250k points from a misalignment of
    a few fine cells (K2 must launch; the first iteration's NN is exact);
-6. card against CPU: a 60k-point terrain and a 50k-point uniform box
-   (z-column sweep on both devices), multiscale on both, same iteration
-   counts and stop codes, registration error ≤ 1e-4 m;
+6. card against CPU: a 60k-point terrain, a 50k-point uniform box
+   (z-column sweep on both devices), a 25k-point terrain through the
+   two-stage plane level (``nn_resolution == 2·base`` on both) and the
+   60k terrain with ``robust="tukey"``, multiscale on both, same iteration
+   counts and stop codes, registration error ≤ 1e-4 m. On the card alone:
+   the two-stage plane run in segments of 3 equals the one-dispatch run,
+   a 5 + 5 iteration run resumed through ``resume_carry`` equals the
+   10-iteration run (history and transform, bit for bit), and two
+   estimations of the 1M target's normals are bit-equal (timed);
 7. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
-   both main paths, error, times, data-sheet bound and issue floor at its
-   most launched shape, and every measured shape under ``shapes`` with its
-   launches per path;
+   the main paths (headline, volume, plane, plane_10m), error, times,
+   data-sheet bound and issue floor at its most launched shape, and every
+   measured shape under ``shapes`` with its launches per path;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -86,6 +115,16 @@ HEADLINE_KW = dict(coarse_max_points=30_000, coarse_iterations=15,
 # bench.py's volume row: the headline's kwargs on a uniform box.
 VOLUME = dict(n=1_000_000, seed=7, noise_sigma=0.02, kind="uniform",
               extent=100.0)
+# bench.py's plane row: the headline with the point-to-plane estimator;
+# at 10M points its fine level runs the two-stage boosted grids.
+PLANE_KW = dict(HEADLINE_KW, estimator="plane")
+PLANE_10M = dict(HEADLINE, n=10_000_000)
+SAMPLE_10M = 200_000    # phase 4d: real rows held against cKDTree
+# phase 6: the two-stage plane regime of the JAX package's multiscale test
+TWO_STAGE = dict(n=25_000, seed=21, noise_sigma=0.02, kind="terrain",
+                 extent=100.0)
+TWO_STAGE_KW = dict(coarse_max_points=3000, coarse_iterations=10,
+                    max_iterations=12, tolerance=0.0, estimator="plane")
 ZCOL_SLOTWISE = 3072    # phase 3: a zrange past the 24576-lane K1 gate
 SLOTWISE_TILES = 512    # phase 3: tiles of that slot-wise K2 launch
 # phase 3: K3's split counts timed beside the wrapper's, as CTAs per SM
@@ -203,7 +242,7 @@ def _compare_sweeps(out_k, out_p):
 
 
 def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
-                library=None, device_ms=None):
+                library=None, device_ms=None, plain_reps=5):
     """Time ``kernel`` and ``plain`` (and ``library``, K3's yardstick) on
     the same inputs, hold kernel against plain with ``compare`` (returns
     max_abs_err and a note), and compute the data-sheet bound and the
@@ -215,7 +254,7 @@ def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
     if device_ms is not None:
         wrapper = {"wrapper_ms": ms}
         ms = device_ms
-    plain_ms, out_p = cuda_ms(plain)
+    plain_ms, out_p = cuda_ms(plain, reps=plain_reps)
     err, note = compare(out_k, out_p)
     if wrapper:
         note += f", wrapper call {wrapper['wrapper_ms']:.4f} ms"
@@ -241,7 +280,15 @@ def _compare_sweep(out_k, out_p):
     return err, f", ties {ties}"
 
 
-def _sweep_k1(results, win, tgt_t, slabs, trange, replaces, issue_rate):
+def _record(results, name, key, entry):
+    """Keep ``entry`` under ``key`` (a launch shape as ``_shape_key``
+    gives it); K1's key leaves out the tile count, so one key may hold
+    entries of several layouts."""
+    results[name].setdefault(key, []).append(entry)
+
+
+def _sweep_k1(results, win, tgt_t, slabs, trange, replaces, issue_rate,
+              plain_reps=5):
     """K1 against plain on one window (all its tiles), the certificates
     too; keyed (slabs, trange), since its tile count follows the query
     layout."""
@@ -270,9 +317,9 @@ def _sweep_k1(results, win, tgt_t, slabs, trange, replaces, issue_rate):
         lambda: colsweep_plain(*args, **kw), compare_k1,
         int(lens.sum()) * 128,
         t * 128 * 12 + t * slabs * 8 + (tgt_t.shape[1] - trange) * 12
-        + t * 8 * 128 * 4, issue_rate)
-    entry.update(shape=shape, replaces=replaces)
-    results["colsweep_fused"][(slabs, trange)] = entry
+        + t * 8 * 128 * 4, issue_rate, plain_reps=plain_reps)
+    entry.update(shape=shape, replaces=replaces, tiles=t)
+    _record(results, "colsweep_fused", (slabs, trange), entry)
 
 
 def _distinct_rows(base, trange):
@@ -284,7 +331,7 @@ def _distinct_rows(base, trange):
 
 
 def _sweep_k2(results, win, tgt_t, slabs, trange, tile_counts, replaces,
-              issue_rate):
+              issue_rate, plain_reps=5):
     """K2 against plain on the first ``ct`` tiles of one window for each
     ``ct``; keyed (ct, slabs, trange). Pairs count each tile's distinct
     rows (the union of its slab windows), the work its queries need; the
@@ -309,9 +356,9 @@ def _sweep_k2(results, win, tgt_t, slabs, trange, tile_counts, replaces,
             lambda: colsweep_plain(*args, **kw), _compare_sweep,
             _distinct_rows(args[0], trange) * 128,
             ct * 128 * 12 + ct * slabs * 4 + (tgt_t.shape[1] - trange) * 12
-            + ct * 8 * 128 * 4, issue_rate)
+            + ct * 8 * 128 * 4, issue_rate, plain_reps=plain_reps)
         entry.update(shape=shape, replaces=replaces, splits=splits)
-        results["colsweep"][(ct, slabs, trange)] = entry
+        _record(results, "colsweep", (ct, slabs, trange), entry)
 
 
 def _k3_kernel_ms(qq, tt, splits, reps=20):
@@ -333,6 +380,56 @@ def _k3_kernel_ms(qq, tt, splits, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def _hold_k3(results, qq, tt, issue_rate, replaces, full=True):
+    """K3 against plain at (queries, targets) = the shapes of ``qq``,
+    ``tt``. ``full``: also the library yardstick and the kernel at other
+    split counts (their keys must equal the chosen count's)."""
+    from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
+    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
+        brute_keys,
+        brute_splits,
+        nn_brute,
+    )
+
+    def compare_brute(out_k, out_p):
+        (ik, dk), (ip, dp) = out_k, out_p
+        check(torch.equal(ik, ip), "K3: winners differ from plain")
+        err = float((dk - dp).abs().max())
+        check(err == 0.0, f"K3: distances differ from plain: {err}")
+        return err, ""
+
+    n_q, n_t = qq.shape[0], tt.shape[0]
+    if (n_q, n_t) in results["brute_nn"]:
+        return
+    sms = torch.cuda.get_device_properties(qq.device).multi_processor_count
+    tiles = -(-n_q // 128)
+    splits = brute_splits(n_q, n_t, sms)
+    cands = {splits}
+    if full:
+        cands |= {max(1, min(n_t // 1024, round(k * sms / tiles)))
+                  for k in K3_CTAS_PER_SM}
+    keys = brute_keys(qq, tt, splits)
+    by_splits = {}
+    for s in sorted(cands):
+        check(torch.equal(brute_keys(qq, tt, s), keys),
+              f"K3 at {s} splits: keys differ from {splits} splits")
+        by_splits[s] = _k3_kernel_ms(qq, tt, s)
+    entry = _timed_pair(
+        f"K3 brute_nn {n_q} x {n_t} ({splits} splits, {tiles * splits} "
+        "CTAs)", lambda: nn_brute(qq, tt),
+        lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
+        (n_q + n_t) * 12 + n_q * 8, issue_rate,
+        library=(lambda: cdist_argmin(qq, tt)) if full else None,
+        device_ms=by_splits[splits], plain_reps=5 if full else 2)
+    entry.update(shape=f"{n_q} x {n_t}", replaces=replaces, splits=splits)
+    _record(results, "brute_nn", (n_q, n_t), entry)
+    if full:
+        print(f"[3 kernels] K3 {n_q} x {n_t} kernel ms by splits (CTAs per "
+              "SM): " + ", ".join(f"{s} ({tiles * s / sms:.2f}): {ms:.4f}"
+                                  for s, ms in by_splits.items()),
+              flush=True)
+
+
 def _repair_queries(tgt_local, cell, n, rng):
     """``n`` target points moved up to 1.2 fine cells per axis, so that
     many fine tiles decertify (the coarse repair stages' input)."""
@@ -351,20 +448,84 @@ def _stage_tiles(t):
     return sorted({ct_small, ct_mid, ct_full})
 
 
-def phase_kernels(data, vdata, issue_rate):
-    """Each kernel against its plain version at every shape the headline
-    and volume runs can launch it with. Returns {name: {shape: entry}}; a
-    shape is the key the wrapper tallies in ``LAUNCH_SHAPES`` (K1:
-    (slabs, trange), its tile count follows the query layout)."""
-    from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
+def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
+                     issue_rate, full=True):
+    """Every kernel one slab-sweep factory's nn_fn can launch, on its
+    grids: the fine sweep over a whole layout of the target + N(0, 0.02)
+    (K1, or K2's slot-wise form where the trange sends it there), K2 on
+    the coarse repair grid at each stage size, and K3 at the brute tiers
+    (512 and 4096 queries against the whole target)."""
+    from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
+        grouped_tile_order_device,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import sweep_window
+    from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
+        use_fused_sweep,
+    )
+
+    tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
+    fn, (grid, coarse, nrm), R = prepared
+    m = tgt_dev.shape[0]
+    trange = grid.tgt_t.shape[1] - m
+    ctrange = coarse.tgt_t.shape[1] - m
+    Rc = max(R // 4, 8)
+    fused = use_fused_sweep(4, trange)
+    normals = "none"
+    if nrm is not None:
+        for g in (grid, coarse):
+            check(float(g.tgt_t[3:6, :m].abs().amax()) <= 1.0 + 1e-6
+                  and bool((g.tgt_t[3:6, m:] == 0).all()),
+                  f"{label}: rows 3-5 do not hold the normals")
+        normals = (f"real, |n_z| median "
+                   f"{float(grid.tgt_t[5, :m].abs().median()):.4f}")
+    reps = 5 if full else 2
+    print(f"[3 kernels] {label}: fine grid R={R} trange={trange} "
+          f"({'K1' if fused else 'K2 slot-wise'}); coarse grid R={Rc} "
+          f"trange={ctrange}; target {m} points; normals in rows 3-5: "
+          f"{normals}", flush=True)
+    gen = torch.Generator(device=tgt_dev.device).manual_seed(7)
+    q = tgt_dev + 0.02 * torch.randn(tgt_dev.shape, generator=gen,
+                                     device=tgt_dev.device)
+    rows, _ = grouped_tile_order_device(q, grid.origin, grid.cell_size,
+                                        resolution=R)
+    ql = q[rows].contiguous()
+    win = sweep_window(ql, grid, resolution=R, tile_q=128, slabs=4,
+                       trange=trange, fused=fused)
+    if fused:
+        _sweep_k1(results, win, grid.tgt_t, 4, trange, f"{tpu}:1165",
+                  issue_rate, plain_reps=reps)
+    else:
+        _sweep_k2(results, win, grid.tgt_t, 4, trange, [win.base.shape[0]],
+                  f"{tpu}:1025", issue_rate, plain_reps=reps)
+
+    cts = _stage_tiles(win.base.shape[0])
+    n2 = cts[-1] * 128
+    q2 = torch.as_tensor(
+        _repair_queries(tgt_local, float(grid.cell_size), n2, rng),
+        device=tgt_dev.device)
+    rows2, _ = grouped_tile_order_device(q2, grid.origin, grid.cell_size,
+                                         resolution=R)
+    win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc,
+                        tile_q=128, slabs=4, trange=ctrange, fused=False)
+    _sweep_k2(results, win2, coarse.tgt_t, 4, ctrange, cts, f"{tpu}:1025",
+              issue_rate)
+    bt = 4096 // 128
+    for nb in (max(bt // 8, 1), bt):
+        _hold_k3(results, ql[:nb * 128].contiguous(), tgt_dev, issue_rate,
+                 f"{tpu}:1103", full=full)
+
+
+def phase_kernels(data, vdata, data10, issue_rate):
+    """Each kernel against its plain version at every shape the main paths
+    can launch it with. Returns {name: {key: [entry, ...]}}; a key is the
+    launch shape the wrapper tallies in ``LAUNCH_SHAPES`` (K1: (slabs,
+    trange), its tile count follows the query layout)."""
+    from iterativeclosestpoint_tpu_torch.models.multiscale import (
+        _prepare_fine,
+    )
     from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
         build_zgrid,
         grouped_tile_order_device,
-    )
-    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
-        brute_keys,
-        brute_splits,
-        nn_brute,
     )
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
@@ -374,108 +535,69 @@ def phase_kernels(data, vdata, issue_rate):
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         estimate_grid_params,
     )
+    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
 
     dev = torch.device(DEVICE)
     tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
     results = {"colsweep_fused": {}, "colsweep": {}, "brute_nn": {}}
-
-    # Terrain: the slab sweep.
-    tgt_local = data["tgt_local"]
-    tgt_dev = torch.as_tensor(tgt_local, device=dev)
-    est = estimate_grid_params(tgt_local)
-    R, trange, ctrange = est[0], est[1], est[2]
-    _, (grid, coarse), _ = make_pallas_nn_device(
-        tgt_local, target_dev=tgt_dev, est=est)
-    Rc = max(R // 4, 8)
-    slabs = 4
-    m = len(tgt_local)
-    print(f"[3 kernels] terrain: fine grid R={R} trange={trange}; coarse "
-          f"grid R={Rc} trange={ctrange}; target {m} points", flush=True)
     rng = np.random.default_rng(7)
 
-    # K1: the fine sweep, queries = target + N(0, 0.02), x-group layout.
-    q = torch.as_tensor(
-        tgt_local + rng.normal(0, 0.02, tgt_local.shape).astype(np.float32),
-        device=dev)
-    rows, _ = grouped_tile_order_device(q, grid.origin, grid.cell_size,
-                                        resolution=R)
-    win = sweep_window(q[rows], grid, resolution=R, tile_q=128, slabs=slabs,
-                       trange=trange, fused=True)
-    _sweep_k1(results, win, grid.tgt_t, slabs, trange, f"{tpu}:1165",
-              issue_rate)
+    def coarse_level(d, stride):
+        return (torch.as_tensor(np.ascontiguousarray(
+                    d["src_local"][::stride]), device=dev),
+                torch.as_tensor(np.ascontiguousarray(
+                    d["tgt_local"][::stride]), device=dev))
 
-    # K2: the coarse repair re-sweep at each stage size of the repair chain.
-    cts = _stage_tiles(win.base.shape[0])
-    n2 = cts[-1] * 128
-    q2 = torch.as_tensor(
-        _repair_queries(tgt_local, float(grid.cell_size), n2, rng),
-        device=dev)
-    rows2, _ = grouped_tile_order_device(q2, grid.origin, grid.cell_size,
-                                         resolution=R)
-    win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc,
-                        tile_q=128, slabs=slabs, trange=ctrange, fused=False)
-    _sweep_k2(results, win2, coarse.tgt_t, slabs, ctrange, cts,
-              f"{tpu}:1025", issue_rate)
+    # Terrain 1M: the plane path's grids (with normals); the headline's
+    # point grids have the same shapes.
+    _, prep, prep2 = _prepare_fine(data["src"], data["tgt"], PLANE_KW, dev)
+    check(prep2 is None, "1M terrain: the two-stage gate opened")
+    tgt_dev = torch.as_tensor(data["tgt_local"], device=dev)
+    _hold_slab_grids(results, "terrain 1M", prep, data["tgt_local"],
+                     tgt_dev, rng, issue_rate)
+    # K3 at the coarse level's shape (stride 34); the volume run launches
+    # it at this same shape.
+    stride = -(-len(data["src"]) // HEADLINE_KW["coarse_max_points"])
+    _hold_k3(results, *coarse_level(data, stride), issue_rate,
+             f"{tpu}:1103")
+    del prep, tgt_dev
 
-    # K3 at the coarse level's shape (stride 34) and at the repair chain's
-    # brute stages (bt_small and bt tiles of 128 queries at the default
-    # 4096-query batch) against the whole target. The volume run launches
-    # K3 at these same shapes.
-    stride = -(-m // HEADLINE_KW["coarse_max_points"])
-    bt = 4096 // 128
-    bt_small = max(bt // 8, 1)
-    shapes = [
-        (torch.as_tensor(np.ascontiguousarray(data["src_local"][::stride]),
-                         device=dev),
-         torch.as_tensor(np.ascontiguousarray(tgt_local[::stride]),
-                         device=dev)),
-        (q[rows][:bt_small * 128].contiguous(), tgt_dev),
-        (q[rows][:bt * 128].contiguous(), tgt_dev),
-    ]
-
-    def compare_brute(out_k, out_p):
-        (ik, dk), (ip, dp) = out_k, out_p
-        check(torch.equal(ik, ip), "K3: winners differ from plain")
-        err = float((dk - dp).abs().max())
-        check(err == 0.0, f"K3: distances differ from plain: {err}")
-        return err, ""
-
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for qq, tt in shapes:
-        n_q, n_t = qq.shape[0], tt.shape[0]
-        tiles = -(-n_q // 128)
-        splits = brute_splits(n_q, n_t, sms)
-        # The split rule's evidence: the kernel at other split counts,
-        # whose keys (d² bits and row) must equal those at the chosen one.
-        cands = sorted({max(1, min(n_t // 1024, round(k * sms / tiles)))
-                        for k in K3_CTAS_PER_SM} | {splits})
-        keys = brute_keys(qq, tt, splits)
-        by_splits = {}
-        for s in cands:
-            check(torch.equal(brute_keys(qq, tt, s), keys),
-                  f"K3 at {s} splits: keys differ from {splits} splits")
-            by_splits[s] = _k3_kernel_ms(qq, tt, s)
-        entry = _timed_pair(
-            f"K3 brute_nn {n_q} x {n_t} ({splits} splits, {tiles * splits} "
-            "CTAs)", lambda: nn_brute(qq, tt),
-            lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
-            (n_q + n_t) * 12 + n_q * 8, issue_rate,
-            library=lambda: cdist_argmin(qq, tt),
-            device_ms=by_splits[splits])
-        entry.update(shape=f"{n_q} x {n_t}", replaces=f"{tpu}:1103",
-                     splits=splits)
-        results["brute_nn"][(n_q, n_t)] = entry
-        print(f"[3 kernels] K3 {n_q} x {n_t} kernel ms by splits (CTAs per "
-              "SM): " + ", ".join(f"{s} ({tiles * s / sms:.2f}): {ms:.4f}"
-                                  for s, ms in by_splits.items()),
-              flush=True)
+    # Terrain 10M, the two-stage plane level: the base and boosted grids
+    # (with normals), the middle level's own grid (stride 18, point mode)
+    # and the first coarse level (stride 334).
+    _, prep, prep2 = _prepare_fine(data10["src"], data10["tgt"], PLANE_KW,
+                                   dev)
+    check(prep2 is not None, "10M terrain: the two-stage gate refused")
+    tgt_dev = torch.as_tensor(data10["tgt_local"], device=dev)
+    for label, p in (("terrain 10M base", prep),
+                     ("terrain 10M boosted", prep2)):
+        _hold_slab_grids(results, label, p, data10["tgt_local"], tgt_dev,
+                         rng, issue_rate, full=False)
+    del prep, prep2, tgt_dev
+    n10 = len(data10["src"])
+    strides = [-(-n10 // HEADLINE_KW["coarse_max_points"])]
+    while strides[-1] > 64:
+        strides.append(max(2, int(round(strides[-1] ** 0.5))))
+    check(len(strides) == 2, f"10M ladder {strides}")
+    _hold_k3(results, *coarse_level(data10, strides[0]), issue_rate,
+             f"{tpu}:1103", full=False)
+    # The middle level centers its own subsample, as icp_register does.
+    mid_tgt = data10["tgt"][::strides[1]]
+    mid_local = mid_tgt - center_offset(mid_tgt)
+    mid_dev = torch.as_tensor(mid_local, dtype=torch.float32, device=dev)
+    _hold_slab_grids(results, f"terrain 10M middle level (stride "
+                     f"{strides[1]})",
+                     make_pallas_nn_device(mid_local, target_dev=mid_dev),
+                     mid_local.astype(np.float32), mid_dev, rng, issue_rate,
+                     full=False)
+    del mid_dev
 
     # Volume: the z-column sweep on anisotropic cells.
     tgt_local = vdata["tgt_local"]
     tgt_dev = torch.as_tensor(tgt_local, device=dev)
     est = estimate_grid_params(tgt_local)
     R, ctrange, zrange = est[0], est[2], est[4]
-    fn, (zgrid, coarse), _ = make_pallas_nn_device(
+    fn, (zgrid, coarse, _), _ = make_pallas_nn_device(
         tgt_local, target_dev=tgt_dev, est=est)
     check(fn.layout_group == "xy", "the volume pair did not select zcol")
     Rc = max(R // 4, 8)
@@ -522,35 +644,116 @@ def _shape_key(name, shape):
     return shape[1:] if name == "colsweep_fused" else shape
 
 
-def phase_main_path(tag, data, measured, zcol):
-    """One main path at full width: the terrain headline, or with
-    ``zcol`` the uniform box, where the regime gate must pick the
-    z-column sweep."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+def _final_pose(tag, data, transform, prepared, sample=None):
+    """Exactness at a final pose: the fine sweep's certified fraction over
+    real rows, and the exact chain's distances (and, with normals, each
+    returned normal against the target's normal at the winner, bit for
+    bit) against cKDTree on the real rows, or on a seeded sample of
+    ``sample`` of them."""
     from iterativeclosestpoint_tpu_torch.models.icp import (
         _prep_fine_source,
         _rebase_transform,
     )
-    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
-    from iterativeclosestpoint_tpu_torch.ops.se3 import registration_error
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
-        make_pallas_nn_device,
         nn_colsweep,
         nn_colsweep_z,
     )
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
-        estimate_grid_params,
         use_fused_sweep,
     )
-    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
     from scipy.spatial import cKDTree
+
+    dev = torch.device(DEVICE)
+    nn_fn, state, R = prepared
+    tgt_local = data["tgt_local"]
+    m = len(tgt_local)
+    tgt_dev = torch.as_tensor(tgt_local, device=dev)
+    trange = state[0].tgt_t.shape[1] - m
+    T_loc = torch.as_tensor(_rebase_transform(transform, -data["offset"]),
+                            dtype=torch.float32, device=dev)
+    q, _, w = _prep_fine_source(
+        torch.as_tensor(data["src_local"], device=dev), T_loc,
+        state[0].origin, state[0].cell_size, resolution=R,
+        group=nn_fn.layout_group)
+    real = w > 0
+    if nn_fn.layout_group == "xy":
+        cert = nn_colsweep_z(q, state[0], resolution=R, zrange=trange)[3]
+    else:
+        cert = nn_colsweep(q, state[0], resolution=R, slabs=4,
+                           trange=trange, fused=use_fused_sweep(4, trange))[3]
+    frac = float(cert[real].float().mean())
+    out = nn_fn(q, tgt_dev, state)
+    rows = torch.nonzero(real).squeeze(1)
+    if sample is not None:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rows = rows[torch.randperm(rows.shape[0], generator=gen,
+                                   device=dev)[:sample]]
+    qh = q[rows].cpu().numpy().astype(np.float64)
+    tree = cKDTree(tgt_local.astype(np.float64))
+    d_ref, _ = tree.query(qh, workers=-1)
+    gap = float(np.abs(out[1][rows].cpu().numpy() - d_ref).max())
+    note = ""
+    if nn_fn.with_normals:
+        matched = out[0][rows].cpu().numpy().astype(np.float64)
+        d0, win = tree.query(matched, workers=-1)
+        check(not d0.any(), f"{tag}: a matched point is not a target point")
+        nrm_ref = state[2][torch.as_tensor(win, device=dev)]
+        same = torch.equal(out[2][rows], nrm_ref)
+        note = (f"; normals equal normals[winner] on all {len(qh)} rows: "
+                f"{same}")
+        check(same, f"{tag}: a returned normal is not its winner's")
+    print(f"[{tag}] final pose: certified {frac:.6f} of "
+          f"{int(real.sum())} real queries at the fine level "
+          f"({q.shape[0]} laid out); max |dist - cKDTree| {gap:.3e} m over "
+          f"{len(qh)} rows{note}", flush=True)
+    check(gap <= 1e-6, f"{tag}: final-pose NN not exact: {gap}")
+
+
+def _launch_checks(tag, by_shape, measured, launches):
+    for (name, shape), c in sorted(by_shape.items()):
+        print(f"[{tag}] launches {name} {shape}: {c}")
+        check(_shape_key(name, shape) in measured[name],
+              f"the {tag} run launched {name} at {shape}, a shape phase 3 "
+              "did not hold against plain")
+    check(launches["colsweep_fused"] > 0, "K1 never launched")
+    check(launches["brute_nn"] > 0, "K3 never launched")
+
+
+def _breakdown(tag, data, kw):
+    """One synced run under the stage collector; returns the fine loop's
+    seconds and the run's result."""
+    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+
+    with collect(sync=True) as col:
+        res = icp_register_multiscale(data["src"], data["tgt"], **kw)
+    for line in col.lines():
+        print(f"[{tag}] breakdown: {line}")
+    loop_s = col.stages["fine/loop"]  # both stages of a two-stage level
+    iters = res.final.iterations
+    print(f"[{tag}] fine loop {loop_s * 1e3 / iters:.4f} ms/iteration, "
+          f"{len(data['src']) * iters / loop_s:.1f} points/s (synced run)",
+          flush=True)
+    return res
+
+
+def phase_main_path(tag, data, measured, zcol, kw):
+    """One main path at full width: the terrain headline, the uniform box
+    (``zcol``: the regime gate must pick the z-column sweep) or the plane
+    row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+    from iterativeclosestpoint_tpu_torch.models.multiscale import (
+        _prepare_fine,
+    )
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.se3 import registration_error
 
     src, tgt, T_true = data["src"], data["tgt"], data["T_true"]
     n = len(src)
-    iters = HEADLINE_KW["max_iterations"]
-    kw = dict(HEADLINE_KW, device=DEVICE)
+    iters = kw["max_iterations"]
+    kw = dict(kw, device=DEVICE)
     res = icp_register_multiscale(src, tgt, **kw)  # warm-up
     times = []
     for _ in range(3):
@@ -566,26 +769,15 @@ def phase_main_path(tag, data, measured, zcol):
     best = min(times)
     print(f"[{tag}] runs: {', '.join(f'{t:.4f}' for t in times)} s; "
           f"best {best:.4f} s -> {n * iters / best:.1f} points/s blended; "
-          f"launches per run {launches}", flush=True)
-    for (name, shape), c in sorted(by_shape.items()):
-        print(f"[{tag}] launches {name} {shape}: {c}")
-        check(_shape_key(name, shape) in measured[name],
-              f"the {tag} run launched {name} at {shape}, a shape phase 3 "
-              "did not hold against plain")
-    check(launches["colsweep_fused"] > 0, "K1 never launched")
-    check(launches["brute_nn"] > 0, "K3 never launched")
+          f"nn_resolution {fine.nn_resolution}; launches per run "
+          f"{launches}", flush=True)
+    _launch_checks(tag, by_shape, measured, launches)
     if zcol:
         check(any(name == "colsweep_fused" and shape[1] == 12
                   for name, shape in by_shape),
               "K1 never launched at 12 z-window slots")
 
-    with collect(sync=True) as col:
-        icp_register_multiscale(src, tgt, **kw)
-    for line in col.lines():
-        print(f"[{tag}] breakdown: {line}")
-    loop_s = col.stages["fine/loop"]
-    print(f"[{tag}] fine loop {loop_s * 1e3 / iters:.4f} ms/iteration, "
-          f"{n * iters / loop_s:.1f} points/s (synced run)", flush=True)
+    _breakdown(tag, data, kw)
 
     # One run under torch.profiler: the device's busy time (one stream,
     # so the kernels' summed time) and the kernels ranked by device time.
@@ -622,37 +814,84 @@ def phase_main_path(tag, data, measured, zcol):
           f"registration_error vs T_true {err:.6f} m (not gated)",
           flush=True)
 
-    # Exactness at the final pose: certified fraction of the fine sweep
-    # over real rows, and the exact chain's distances against a k-d tree.
-    dev = torch.device(DEVICE)
-    offset, tgt_local = data["offset"], data["tgt_local"]
-    tgt_dev = torch.as_tensor(tgt_local, device=dev)
-    est = estimate_grid_params(tgt_local)
-    nn_fn, state, R = make_pallas_nn_device(tgt_local, target_dev=tgt_dev,
-                                            est=est)
-    check((nn_fn.layout_group == "xy") == zcol,
-          f"regime gate picked layout {nn_fn.layout_group!r}")
-    T_loc = torch.as_tensor(_rebase_transform(fine.transform, -offset),
-                            dtype=torch.float32, device=dev)
-    q, _, w = _prep_fine_source(
-        torch.as_tensor(data["src_local"], device=dev), T_loc,
-        state[0].origin, state[0].cell_size, resolution=R,
-        group=nn_fn.layout_group)
-    real = w > 0
-    if zcol:
-        cert = nn_colsweep_z(q, state[0], resolution=R, zrange=est[4])[3]
-    else:
-        cert = nn_colsweep(q, state[0], resolution=R, slabs=4,
-                           trange=est[1], fused=use_fused_sweep(4, est[1]))[3]
-    frac = float(cert[real].float().mean())
-    _, d = nn_fn(q, tgt_dev, state)
-    qh = q[real].cpu().numpy().astype(np.float64)
-    d_ref, _ = cKDTree(tgt_local.astype(np.float64)).query(qh, workers=-1)
-    gap = float(np.abs(d[real].cpu().numpy() - d_ref).max())
-    print(f"[{tag}] final pose: certified {frac:.6f} of {len(qh)} "
-          f"real queries at the fine level ({q.shape[0]} laid out); max "
-          f"|dist - cKDTree| {gap:.3e} m", flush=True)
-    check(gap <= 1e-6, f"final-pose NN not exact: {gap}")
+    if kw.get("estimator") == "plane":
+        check(not _gate(tag, data["tgt_local"]),
+              f"{tag}: the two-stage gate opened")
+    _, prepared, prepared2 = _prepare_fine(src, tgt, kw, torch.device(DEVICE))
+    check(prepared2 is None, f"{tag}: the two-stage gate opened")
+    check((prepared[0].layout_group == "xy") == zcol,
+          f"regime gate picked layout {prepared[0].layout_group!r}")
+    _final_pose(tag, data, fine.transform, prepared)
+    return by_shape, res
+
+
+def _gate(tag, tgt_local):
+    """The two-stage gate's inputs: (R, base, trange, zrange) and the
+    16-points-per-cell boost test at 2·base; returns whether it opens."""
+    from iterativeclosestpoint_tpu_torch.ops.cellblock import (
+        surface_boost_ok,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
+        estimate_grid_params,
+    )
+
+    R, trange, _, base, zrange = estimate_grid_params(tgt_local)
+    boost = surface_boost_ok(tgt_local, 2 * base, occupancy=16)
+    print(f"[{tag}] two-stage gate: R={R}, base={base}, trange={trange}, "
+          f"zrange={zrange}, surface_boost_ok(2·base, occupancy=16) "
+          f"{boost}", flush=True)
+    return R == base and zrange is None and trange < 2048 and boost
+
+
+def phase_plane_10m(data, measured):
+    """The two-stage plane level at 10M points: the gate's construction
+    guard, one warm-up and one timed run, a synced breakdown, the boosted
+    resolution, and exactness at the final pose on a sample."""
+    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+    from iterativeclosestpoint_tpu_torch.models.multiscale import (
+        _prepare_fine,
+    )
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.cellblock import (
+        auto_resolution_data,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.se3 import registration_error
+
+    tag = "4d plane 10M"
+    src, tgt = data["src"], data["tgt"]
+    check(_gate(tag, data["tgt_local"]),
+          "10M terrain: the two-stage gate's construction guard fails")
+    base = auto_resolution_data(data["tgt_local"],
+                                surface_boost_occupancy=32,
+                                return_base=True)[1]
+    kw = dict(PLANE_KW, device=DEVICE)
+    iters = kw["max_iterations"]
+    icp_register_multiscale(src, tgt, **kw)  # warm-up
+    sk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = icp_register_multiscale(src, tgt, **kw)
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    by_shape = dict(sk.LAUNCH_SHAPES)
+    fine = res.final
+    print(f"[{tag}] run: {wall:.4f} s -> {len(src) * iters / wall:.1f} "
+          f"points/s blended; levels "
+          f"{[(s, r.iterations, r.nn_resolution) for s, r in res.levels]}; "
+          f"launches {launches}", flush=True)
+    check(fine.nn_resolution == 2 * base,
+          f"fine nn_resolution {fine.nn_resolution}, expected {2 * base}")
+    check(fine.iterations == iters, f"fine iterations {fine.iterations}")
+    _launch_checks(tag, by_shape, measured, launches)
+    _breakdown(tag, data, kw)
+    err = float(registration_error(
+        torch.as_tensor(fine.transform), torch.as_tensor(data["T_true"]),
+        torch.as_tensor(src[::10], dtype=torch.float64)))
+    print(f"[{tag}] rmse {fine.rmse:.6f}, stop {fine.message!r}, "
+          f"registration_error vs T_true {err:.6f} m over every 10th "
+          "point (not gated)", flush=True)
+    _, _, prepared2 = _prepare_fine(src, tgt, kw, torch.device(DEVICE))
+    _final_pose(tag, data, fine.transform, prepared2, sample=SAMPLE_10M)
     return by_shape
 
 
@@ -704,28 +943,53 @@ def phase_repair():
     return launches
 
 
-def phase_card_vs_cpu():
-    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+def _same_history(a, b):
+    """Bit-equal histories, transforms and stop codes of two results."""
+    return (a.iterations == b.iterations and a.stop_reason == b.stop_reason
+            and np.array_equal(a.transform, b.transform)
+            and all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+                "history_rmse", "history_valid", "history_transform",
+                "history_mean_dist", "history_std_dist",
+                "history_threshold")))
+
+
+def phase_card_vs_cpu(data):
+    """The same multiscale runs on the card and on the CPU; then the
+    card's segmented, resumed and normal-estimation runs against their
+    one-dispatch and repeated twins. ``data``: the 1M terrain pair."""
+    from iterativeclosestpoint_tpu_torch import (
+        icp_register,
+        icp_register_multiscale,
+    )
     from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.cellblock import (
+        auto_resolution_data,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.normals import (
+        estimate_normals_cellpca_device,
+    )
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
     )
 
+    terrain = dict(n=CARD_CPU_N, seed=95, noise_sigma=0.01)
     cases = [
-        ("terrain", dict(n=CARD_CPU_N, seed=95, noise_sigma=0.01),
-         dict(max_iterations=15)),
+        ("terrain", terrain, dict(max_iterations=15)),
         # The uniform box selects the z-column sweep; fine iterations are
-        # capped because the CPU runs K1's plain version over 12 slots.
+        # capped (6) because the CPU runs K1's plain version over 12 slots.
         ("uniform box", dict(n=BOX_N, seed=7, noise_sigma=0.02,
                              kind="uniform", extent=100.0),
-         dict(max_iterations=10)),
+         dict(max_iterations=6)),
+        ("terrain two-stage plane", TWO_STAGE, TWO_STAGE_KW),
+        ("terrain tukey", terrain, dict(max_iterations=15, robust="tukey")),
     ]
+    two_stage_card = None
     for label, config, extra in cases:
-        data = make_data(config)
-        src, tgt = data["src"], data["tgt"]
-        kw = dict(coarse_max_points=10_000, nn_backend="pallas",
-                  return_registered=False, **extra)
-        layouts = [make_pallas_nn_device(data["tgt_local"], device=d)[0]
+        data_c = make_data(config)
+        src, tgt = data_c["src"], data_c["tgt"]
+        kw = {"coarse_max_points": 10_000, "nn_backend": "pallas",
+              "return_registered": False, **extra}
+        layouts = [make_pallas_nn_device(data_c["tgt_local"], device=d)[0]
                    .layout_group for d in (DEVICE, "cpu")]
         sk.reset_launches()
         t0 = time.perf_counter()
@@ -743,10 +1007,12 @@ def phase_card_vs_cpu():
             (src @ Ta[:3, :3].T + Ta[:3, 3])
             - (src @ Tb[:3, :3].T + Tb[:3, 3]), axis=1).max())
         k1 = sorted(sh for nm, sh in by_shape if nm == "colsweep_fused")
+        res_pair = (card.final.nn_resolution, cpu.final.nn_resolution)
         print(f"[6 card vs cpu] {label}, {len(src)} points, layouts "
               f"{layouts}, card K1 shapes {k1}: card {levels_card} in "
               f"{t1 - t0:.3f} s, cpu {levels_cpu} in {t2 - t1:.3f} s, "
-              f"registration_error {err:.3e} m", flush=True)
+              f"fine nn_resolution {res_pair}, registration_error "
+              f"{err:.3e} m", flush=True)
         want = "xy" if config.get("kind") == "uniform" else "x"
         check(layouts == [want, want],
               f"{label}: regime gate picked {layouts}, expected {want}")
@@ -756,6 +1022,58 @@ def phase_card_vs_cpu():
         check(levels_card == levels_cpu,
               f"{label}: iteration counts or stop codes differ")
         check(err <= 1e-4, f"{label}: card and cpu disagree: {err} m")
+        if extra is TWO_STAGE_KW:
+            base = auto_resolution_data(tgt, surface_boost_occupancy=32,
+                                        return_base=True)[1]
+            check(res_pair == (2 * base, 2 * base),
+                  f"{label}: fine nn_resolution {res_pair}, expected "
+                  f"{2 * base} on both")
+            two_stage_card = (data_c, kw, card)
+
+    # The card alone: segments, resume and normals are bit-identical.
+    data_c, kw, one = two_stage_card
+    seg = icp_register_multiscale(data_c["src"], data_c["tgt"],
+                                  device=DEVICE, segment_iterations=3, **kw)
+    same_seg = _same_history(seg.final, one.final)
+    pair = dict(nn_backend="pallas", estimator="plane", tolerance=0.0,
+                return_registered=False, device=DEVICE)
+    full = icp_register(data_c["src"], data_c["tgt"], max_iterations=10,
+                        **pair)
+    states = []
+    first = icp_register(data_c["src"], data_c["tgt"], max_iterations=5,
+                         segment_iterations=5,
+                         segment_callback=states.append, **pair)
+    rest = icp_register(data_c["src"], data_c["tgt"], max_iterations=5,
+                        resume_carry=states[-1], **pair)
+    for f in ("history_rmse", "history_valid", "history_transform",
+              "history_mean_dist", "history_std_dist", "history_threshold"):
+        setattr(rest, f, np.concatenate([getattr(first, f),
+                                         getattr(rest, f)]))
+    rest.iterations += first.iterations
+    same_resume = _same_history(rest, full)
+    dev = torch.device(DEVICE)
+    tgt_dev = torch.as_tensor(data["tgt_local"], device=dev)
+    base = auto_resolution_data(data["tgt_local"],
+                                surface_boost_occupancy=32,
+                                return_base=True)[1]
+    tmin = data["tgt_local"].min(axis=0)
+    cell = max(float((data["tgt_local"].max(axis=0) - tmin).max()) / base,
+               1e-9)
+    args = (tgt_dev, torch.as_tensor(tmin, device=dev),
+            torch.tensor(cell, dtype=torch.float32, device=dev))
+    ms, n1 = cuda_ms(lambda: estimate_normals_cellpca_device(
+        *args, resolution=base))
+    n2 = estimate_normals_cellpca_device(*args, resolution=base)
+    same_normals = torch.equal(n1, n2)
+    print(f"[6 card] two-stage plane in segments of 3 == one dispatch: "
+          f"{same_seg}; 5 + 5 resumed through resume_carry == 10 "
+          f"iterations ({full.iterations} recorded): {same_resume}; two "
+          f"estimations of the 1M target's normals (R={base}) bit-equal: "
+          f"{same_normals}, {ms:.4f} ms each (CUDA-event median of 5)",
+          flush=True)
+    check(same_seg, "segmented plane run differs from one dispatch")
+    check(same_resume, "resumed run differs from the uninterrupted one")
+    check(same_normals, "normal estimation is not deterministic")
 
 
 def main() -> int:
@@ -770,15 +1088,30 @@ def main() -> int:
     name, smi, issue_rate = phase_device()
     phase_build()
 
+    def stamp(phase):
+        print(f"[t] phase {phase} done at {time.perf_counter() - t_start:.1f}"
+              " s", flush=True)
+
     data = make_data(HEADLINE)
     vdata = make_data(VOLUME)
-    measured = phase_kernels(data, vdata, issue_rate)
-    paths = {
-        "headline": phase_main_path("4 main path", data, measured, False),
-        "volume": phase_main_path("4b volume", vdata, measured, True),
-    }
+    data10 = make_data(PLANE_10M)
+    stamp("data")
+    measured = phase_kernels(data, vdata, data10, issue_rate)
+    stamp(3)
+    paths = {}
+    for path, tag, d, zcol, kw in (
+            ("headline", "4 main path", data, False, HEADLINE_KW),
+            ("volume", "4b volume", vdata, True, HEADLINE_KW),
+            ("plane", "4c plane", data, False, PLANE_KW)):
+        paths[path] = phase_main_path(tag, d, measured, zcol, kw)[0]
+        stamp(tag.split()[0])
+    paths["plane_10m"] = phase_plane_10m(data10, measured)
+    del data10
+    stamp("4d")
     phase_repair()
-    phase_card_vs_cpu()
+    stamp(5)
+    phase_card_vs_cpu(data)
+    stamp(6)
 
     table = [
         ("colsweep_fused", "colsweep_fused.cu", 1165),
@@ -788,21 +1121,30 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
             "max_abs_err", "library_ms")
     entries = []
+
+    def owner(held, shape):
+        """The entry a launch belongs to: K1's entries of one key differ
+        in their layout's tile count."""
+        return next((e for e in held if e.get("tiles") == shape[0]),
+                    held[0])
+
     for name_k, src_file, line in table:
         # Each shape held in phase 3, with its launches in each main path;
         # the entry's own numbers are those of its most launched shape.
         shapes = []
-        for key, k in measured[name_k].items():
-            per_path = {
-                p: sum(c for (nm, sh), c in by_shape.items()
-                       if nm == name_k and _shape_key(nm, sh) == key)
-                for p, by_shape in paths.items()}
-            shapes.append(dict(shape=k["shape"], replaces=k["replaces"],
-                               launches=sum(per_path.values()),
-                               launches_by_path=per_path,
-                               **{f: k[f] for f in keys},
-                               **{f: k[f] for f in ("splits", "wrapper_ms")
-                                  if f in k}))
+        for key, held in measured[name_k].items():
+            for k in held:
+                per_path = {
+                    p: sum(c for (nm, sh), c in by_shape.items()
+                           if nm == name_k and _shape_key(nm, sh) == key
+                           and owner(held, sh) is k)
+                    for p, by_shape in paths.items()}
+                shapes.append(dict(
+                    shape=k["shape"], replaces=k["replaces"],
+                    launches=sum(per_path.values()),
+                    launches_by_path=per_path, **{f: k[f] for f in keys},
+                    **{f: k[f] for f in ("splits", "wrapper_ms")
+                       if f in k}))
         top = max(shapes, key=lambda e: e["launches"])
         entries.append({
             "name": name_k, "route": "cuda",

@@ -1,10 +1,23 @@
-"""Coarse-to-fine multiscale ICP (single device, point-to-point).
+"""Coarse-to-fine multiscale ICP (single device).
 
 Counterpart of the JAX package's ``models/multiscale.py``
 (``icp_register_multiscale`` :50, ``_run_level`` :293). A coarse pass on a
 stride subsample estimates the bulk of the SE(3) with exact brute-force
 NN; the full-resolution pass then starts inside the fine grid's cell size,
-so its iterations stay on the certified slab sweep.
+so its iterations stay on the certified slab sweep. Coarse levels run the
+point estimator whatever the fine level's.
+
+Two-stage boosted fine level (plane mode): when the surface boost is
+refused by the 32 points-per-cell occupancy gate but the target still
+clears a 16 points-per-cell floor, the boosted grid is safe once the pose
+has converged (the gate protects the ladder's handoff, not the kernel).
+The fine level then runs ``_BOOST2_PRE_ITERATIONS`` plane iterations on
+the base grid and continues on the boosted grid through ``resume_carry``
+(the exact convergence carry) and ``layout_transform`` (the query layout
+rebuilt at the stage-boundary pose; the source stays raw): one logical
+registration whose histories concatenate and whose callbacks see
+consecutive iteration numbers. Point mode keeps one stage: its pose on
+smooth terrain stalls above the boosted cell size.
 
 The JAX package enqueued the coarse inputs before the bulk uploads and
 deferred the fine grid build behind the coarse loop, working around a
@@ -21,9 +34,19 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from iterativeclosestpoint_tpu_torch.models.icp import ICPResult, icp_register
+from iterativeclosestpoint_tpu_torch.models.icp import (
+    MAX_ITERATIONS,
+    ICPResult,
+    icp_register,
+)
+from iterativeclosestpoint_tpu_torch.ops.cellblock import (
+    _occupancy_model,
+    surface_boost_ok,
+)
 from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
+    auto_coarse_trange,
+    auto_trange,
     estimate_grid_params,
 )
 from iterativeclosestpoint_tpu_torch.runtime.timing import scope, stage
@@ -52,8 +75,10 @@ class MultiscaleResult:
 
 
 def _prepare_fine(source, target, fine_kwargs, dev):
-    """Upload the centered f32 clouds and build the fine-level grids.
-    Returns (device_data, prepared_nn)."""
+    """Upload the centered f32 clouds and build the fine-level grids
+    (with the target's normals in plane mode). Returns (device_data,
+    prepared_nn, prepared_nn2): the second factory is the two-stage fine
+    level's boosted grid, or None where its gate refuses."""
     with stage("host_prep"):
         offset = (center_offset(target) if fine_kwargs.get("center", True)
                   else np.zeros(3))
@@ -63,14 +88,32 @@ def _prepare_fine(source, target, fine_kwargs, dev):
         src_dev = torch.as_tensor(src_local, device=dev)
         tgt_dev = torch.as_tensor(tgt_local, device=dev)
         done((src_dev, tgt_dev))
+    plane = fine_kwargs.get("estimator", "point") == "plane"
+    auto_r = fine_kwargs.get("grid_resolution") is None
     with stage("grid_est"):
+        model = _occupancy_model(tgt_local) if auto_r else None
         grid_est = estimate_grid_params(
-            tgt_local, fine_kwargs.get("grid_resolution"))
+            tgt_local, fine_kwargs.get("grid_resolution"), model=model)
+        boost2_est = None
+        R, trange, _, base, zrange = grid_est
+        if (plane and auto_r and R == base and zrange is None
+                and trange < 2048
+                and surface_boost_ok(tgt_local, 2 * base, occupancy=16,
+                                     model=model)):
+            boost2_est = (2 * base, auto_trange(tgt_local, 2 * base),
+                          auto_coarse_trange(tgt_local, 2 * base), base,
+                          None)
     with stage("grid_build") as done:
         prepared_nn = make_pallas_nn_device(
-            tgt_local, target_dev=tgt_dev, est=grid_est)
-        done(prepared_nn[1])
-    return (src_dev, tgt_dev, offset), prepared_nn
+            tgt_local, target_dev=tgt_dev, est=grid_est, with_normals=plane)
+        prepared_nn2 = None
+        if boost2_est is not None:
+            # Same target, same base-resolution normals.
+            prepared_nn2 = make_pallas_nn_device(
+                tgt_local, target_dev=tgt_dev, est=boost2_est,
+                with_normals=True, normals=prepared_nn[1][2])
+        done((prepared_nn, prepared_nn2))
+    return (src_dev, tgt_dev, offset), prepared_nn, prepared_nn2
 
 
 def icp_register_multiscale(
@@ -103,9 +146,6 @@ def icp_register_multiscale(
             "ported yet (ROADMAP P15)")
     if fine_path != "auto":
         raise ValueError(f"unknown fine_path {fine_path!r}")
-    if fine_kwargs.get("estimator", "point") == "plane":
-        raise NotImplementedError(
-            "estimator='plane' is not ported yet (ROADMAP P10)")
     dev = resolve_device(device)
     source = np.asarray(source, np.float64)
     target = np.asarray(target, np.float64)
@@ -144,19 +184,66 @@ def icp_register_multiscale(
                     return_registered=False, device=dev,
                 )
         else:
-            device_data = prepared_nn = None
+            device_data = prepared_nn = prepared_nn2 = None
             if prepare:
-                device_data, prepared_nn = _prepare_fine(
+                device_data, prepared_nn, prepared_nn2 = _prepare_fine(
                     source, target, fine_kwargs, dev)
                 fine_kwargs.setdefault("nn_backend", "pallas")
             with scope("fine"):
-                res = icp_register(
-                    source, target, dtype=dtype, initial_transform=T,
-                    device_data=device_data, prepared_nn=prepared_nn,
-                    device=dev, **fine_kwargs,
-                )
+                res = _run_fine(source, target, T, dtype, dev, fine_kwargs,
+                                device_data, prepared_nn, prepared_nn2)
         levels.append((stride, res))
         T = res.transform
         if not res.success:
             break
     return MultiscaleResult(final=levels[-1][1], levels=levels)
+
+
+# Stage-1 length of the two-stage boosted fine level: enough plane
+# iterations to converge the pose well inside the boosted cell size.
+_BOOST2_PRE_ITERATIONS = 5
+
+
+def _run_fine(source, target, T, dtype, dev, fine_kwargs, device_data,
+              prepared_nn, prepared_nn2):
+    """The full-resolution level: one ``icp_register``, or the two-stage
+    boosted level when ``prepared_nn2`` is given and the iteration budget
+    exceeds the first stage. An early stop in stage 1 is the result."""
+    K = _BOOST2_PRE_ITERATIONS
+    mi = fine_kwargs.get("max_iterations", 50)
+    common = dict(dtype=dtype, device_data=device_data, device=dev)
+    if prepared_nn2 is None or mi <= K:
+        return icp_register(source, target, initial_transform=T,
+                            prepared_nn=prepared_nn, **common, **fine_kwargs)
+
+    fk1 = dict(fine_kwargs, max_iterations=K, return_registered=False)
+    res1 = icp_register(source, target, initial_transform=T,
+                        prepared_nn=prepared_nn, **common, **fk1)
+    if res1.stop_reason != MAX_ITERATIONS:
+        if fine_kwargs.get("return_registered", True):
+            Tw = np.asarray(res1.transform)
+            res1.source_registered = source @ Tw[:3, :3].T + Tw[:3, 3]
+        return res1
+
+    fk2 = dict(fine_kwargs, max_iterations=mi - K)
+    pc = fine_kwargs.get("progress_callback")
+    if pc is not None:
+        fk2["progress_callback"] = (
+            lambda rec: pc({**rec, "iteration": rec["iteration"] + K}))
+    sc = fine_kwargs.get("segment_callback")
+    if sc is not None:
+        fk2["segment_callback"] = (
+            lambda st: sc({**st, "iteration": st["iteration"] + K}))
+    res2 = icp_register(
+        source, target, prepared_nn=prepared_nn2,
+        resume_carry={"transform": res1.transform,
+                      "prev_error": res1.carry_prev_error,
+                      "no_improve": res1.carry_no_improve},
+        layout_transform=res1.transform, **common, **fk2,
+    )
+    res2.iterations += res1.iterations
+    for f in dataclasses.fields(ICPResult):
+        if f.name.startswith("history_"):
+            setattr(res2, f.name, np.concatenate(
+                [getattr(res1, f.name), getattr(res2, f.name)], axis=0))
+    return res2

@@ -21,11 +21,14 @@ import torch
 def sq_dist(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(n, m) squared distances ``((dx*dx + dy*dy) + dz*dz)``, each
     operation its own tensor op so every step rounds on its own (the CUDA
-    kernels use the same order with ``__fsub_rn``/``__fmul_rn``/``__fadd_rn``)."""
-    dx = q[:, 0:1] - t[None, :, 0]
-    dy = q[:, 1:2] - t[None, :, 1]
-    dz = q[:, 2:3] - t[None, :, 2]
-    return (dx * dx + dy * dy) + dz * dz
+    kernels use the same order with ``__fsub_rn``/``__fmul_rn``/``__fadd_rn``).
+    In place, on two (n, m) buffers."""
+    d2 = q[:, 0:1] - t[None, :, 0]
+    d2.mul_(d2)
+    d = q[:, 1:2] - t[None, :, 1]
+    d2.add_(d.mul_(d))
+    torch.sub(q[:, 2:3], t[None, :, 2], out=d)
+    return d2.add_(d.mul_(d))
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -54,14 +57,20 @@ def nn_bruteforce(
     query: torch.Tensor,
     target: torch.Tensor,
     *,
-    query_chunk: int = 2048,
-    target_tile: int = 8192,
+    query_chunk: "int | None" = None,
+    target_tile: "int | None" = None,
 ):
     """Exact 1-NN of each query point in the target cloud.
 
     Returns (indices (N,) int64, distances (N,) in the query dtype). The
-    chunk sizes bound memory only; they do not change the result.
+    chunk sizes bound memory only; they do not change the result. By
+    default a (query_chunk, target_tile) block is 2048 × 8192 on the card
+    and 512 × 2048 on the CPU, where a block nearer the cache runs several
+    times faster, on one thread as on eight.
     """
+    if query_chunk is None or target_tile is None:
+        query_chunk, target_tile = ((2048, 8192) if query.is_cuda
+                                    else (512, 2048))
     n = query.shape[0]
     m = target.shape[0]
     big = 3.0e18 if query.dtype == torch.float64 else 1.0e18

@@ -8,7 +8,9 @@ Counterpart of ``_build_grid_dev`` (:409), ``_build_grids_dev`` (:476),
 * the target is stable-sorted by x-major cell id ((cx·R)+cy)·R+cz and
   stored transposed as ``tgt_t`` (8, M + trange): rows 0-2 are x, y, z,
   rows 3-7 and the ``trange`` tail columns hold the far padding value, so
-  a slab read of ``trange`` rows from any base ≤ M stays in bounds;
+  a slab read of ``trange`` rows from any base ≤ M stays in bounds; with
+  normals (point-to-plane), rows 3-5 hold each point's normal instead and
+  0 in the tail columns, and the sweeps return the winner's normal;
 * ``col_start`` is the (R²+1,) CSR at (x, y)-column granularity: a slab
   (one x-cell, a y-span, all z) is one contiguous row range;
 * the volume regime's ``ZPallasGrid`` has the same sorted layout with
@@ -61,10 +63,12 @@ def cell_coords(points: torch.Tensor, origin: torch.Tensor,
 
 
 def _sorted_grid(target, origin, cell_size, *, resolution: int, tail: int,
-                 csr_step: int):
+                 csr_step: int, normals=None):
     """Stable cell sort, far padding with ``tail`` columns, the CSR over
     every ``csr_step``-th cell id and the true bbox max, on the target's
-    device. Returns (tgt_t, csr, origin, cell_size, bbox_hi)."""
+    device. With ``normals`` (M, 3), rows 3-5 carry them in the sorted
+    order and hold 0 in the tail columns. Returns (tgt_t, csr, origin,
+    cell_size, bbox_hi)."""
     R = resolution
     tgt = target.to(torch.float32)
     org = origin.to(torch.float32)
@@ -85,6 +89,9 @@ def _sorted_grid(target, origin, cell_size, *, resolution: int, tail: int,
     tt = torch.full((8, m + tail), _FAR, dtype=torch.float32,
                     device=tgt.device)
     tt[0:3, :m] = tgt[order].T
+    if normals is not None:
+        tt[3:6, :m] = normals.to(torch.float32)[order].T
+        tt[3:6, m:] = 0.0
     real = (tgt[:, 0] < _FAR * 0.5)[:, None]
     hi3 = torch.where(real, tgt, torch.full_like(tgt, -_FAR)).amax(dim=0)
     return tt, csr, org, cs, hi3
@@ -92,41 +99,45 @@ def _sorted_grid(target, origin, cell_size, *, resolution: int, tail: int,
 
 def build_grid(target: torch.Tensor, origin: torch.Tensor,
                cell_size: torch.Tensor, *, resolution: int,
-               trange: int) -> PallasGrid:
-    """The slab sweep's grid: (R²+1) column CSR, ``trange`` tail columns."""
+               trange: int, normals=None) -> PallasGrid:
+    """The slab sweep's grid: (R²+1) column CSR, ``trange`` tail columns,
+    ``normals`` (M, 3) in rows 3-5 when given."""
     return PallasGrid(*_sorted_grid(target, origin, cell_size,
                                     resolution=resolution, tail=trange,
-                                    csr_step=resolution))
+                                    csr_step=resolution, normals=normals))
 
 
 def build_zgrid(target: torch.Tensor, origin: torch.Tensor,
                 cell_size: torch.Tensor, *, resolution: int,
-                zrange: int) -> ZPallasGrid:
+                zrange: int, normals=None) -> ZPallasGrid:
     """The z-column sweep's grid: full (R³+1) cell CSR, ``zrange`` tail
-    columns. Meant for the volume regime's small R (≤ 128)."""
+    columns, ``normals`` in rows 3-5 when given. Meant for the volume
+    regime's small R (≤ 128)."""
     return ZPallasGrid(*_sorted_grid(target, origin, cell_size,
                                      resolution=resolution, tail=zrange,
-                                     csr_step=1))
+                                     csr_step=1, normals=normals))
 
 
-def build_grids(target, origin, cell, cell_c, *, resolution: int,
-                trange: int, coarse_resolution: int, coarse_trange: int):
+def build_grids(target, origin, cell, cell_c, normals=None, *,
+                resolution: int, trange: int, coarse_resolution: int,
+                coarse_trange: int):
     """The fine grid and the 4×-coarser repair grid over one target."""
     fine = build_grid(target, origin, cell, resolution=resolution,
-                      trange=trange)
-    coarse = build_grid(target, origin, cell_c,
-                        resolution=coarse_resolution, trange=coarse_trange)
+                      trange=trange, normals=normals)
+    coarse = build_grid(target, origin, cell_c, resolution=coarse_resolution,
+                        trange=coarse_trange, normals=normals)
     return fine, coarse
 
 
-def build_zgrids(target, origin, cell3, cell_c, *, resolution: int,
-                 zrange: int, coarse_resolution: int, coarse_trange: int):
+def build_zgrids(target, origin, cell3, cell_c, normals=None, *,
+                 resolution: int, zrange: int, coarse_resolution: int,
+                 coarse_trange: int):
     """The z-column fine grid (per-axis cells ``cell3``) and the x-slab
     coarse repair grid (cubic cells ``cell_c``) over one target."""
     fine = build_zgrid(target, origin, cell3, resolution=resolution,
-                       zrange=zrange)
-    coarse = build_grid(target, origin, cell_c,
-                        resolution=coarse_resolution, trange=coarse_trange)
+                       zrange=zrange, normals=normals)
+    coarse = build_grid(target, origin, cell_c, resolution=coarse_resolution,
+                        trange=coarse_trange, normals=normals)
     return fine, coarse
 
 

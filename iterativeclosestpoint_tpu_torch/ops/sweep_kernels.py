@@ -129,7 +129,10 @@ def colsweep_plain(base, q, tgt_t, *, slabs: int, trange: int,
     and the partial winners are joined in scan order by
     ``merge_best_plain``, as the kernels join theirs; the result equals the
     unsplit sweep on every row. Tiles run in groups so the
-    (tiles, 128, slabs·trange) d² block stays near 2²⁵ floats.
+    (tiles, 128, slabs·trange) d² block stays near 2²⁵ floats on the card
+    and, on the CPU, near 2²² floats per torch thread up to 2²⁵: on one
+    thread a block nearer the cache runs faster, on many a large block
+    amortises each operation's fork and join across the threads.
     """
     t = base.shape[0]
     dev = q.device
@@ -137,7 +140,9 @@ def colsweep_plain(base, q, tgt_t, *, slabs: int, trange: int,
     width = -(-L // splits)
     out = torch.empty((t, 8, TILE_Q), dtype=torch.float32, device=dev)
     lanes = torch.arange(trange, dtype=torch.int64, device=dev)
-    step = max(1, (1 << 25) // (TILE_Q * L))
+    block = (1 << 25 if q.is_cuda
+             else min((1 << 22) * torch.get_num_threads(), 1 << 25))
+    step = max(1, block // (TILE_Q * L))
     for t0 in range(0, t, step):
         t1 = min(t, t0 + step)
         tb = t1 - t0
@@ -145,15 +150,18 @@ def colsweep_plain(base, q, tgt_t, *, slabs: int, trange: int,
             tb, L)
         cx, cy, cz = (tgt_t[r][rows][:, None, :] for r in range(3))
         qb = q[t0 * TILE_Q:t1 * TILE_Q].reshape(tb, TILE_Q, 3)
-        dx = qb[:, :, 0:1] - cx
-        dy = qb[:, :, 1:2] - cy
-        dz = qb[:, :, 2:3] - cz
-        d2 = (dx * dx + dy * dy) + dz * dz  # (tb, 128, L)
+        # d2 = (dx·dx + dy·dy) + dz·dz, in place: (tb, 128, L).
+        d2 = qb[:, :, 0:1] - cx
+        d2.mul_(d2)
+        d = qb[:, :, 1:2] - cy
+        d2.add_(d.mul_(d))
+        torch.sub(qb[:, :, 2:3], cz, out=d)
+        d2.add_(d.mul_(d))
         if fused:
             v = slack[t0:t1].to(torch.int64)
             u = lanes - (v & 127)[:, :, None]
             valid = ((u >= 0) & (u < (v >> 7)[:, :, None])).reshape(tb, 1, L)
-            d2 = torch.where(valid, d2, torch.full_like(d2, BIG))
+            d2.masked_fill_(~valid, BIG)
         else:
             valid = torch.ones((tb, 1, L), dtype=torch.bool, device=dev)
         best = None

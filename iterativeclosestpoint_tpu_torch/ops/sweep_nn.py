@@ -36,6 +36,9 @@ import torch
 
 from iterativeclosestpoint_tpu_torch.ops.bruteforce import sqrt_rn
 from iterativeclosestpoint_tpu_torch.ops.cellblock import auto_resolution_data
+from iterativeclosestpoint_tpu_torch.ops.normals import (
+    estimate_normals_cellpca_device,
+)
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     PallasGrid,
     ZPallasGrid,
@@ -53,6 +56,7 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     estimate_grid_params,
     use_fused_sweep,
 )
+from iterativeclosestpoint_tpu_torch.runtime.timing import stage
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 from iterativeclosestpoint_tpu_torch.utils.hostmath import bbox
 
@@ -342,6 +346,7 @@ def nn_colsweep_exact(
     target: torch.Tensor,
     grid: "PallasGrid | ZPallasGrid",
     coarse_grid: "PallasGrid | None" = None,
+    target_normals: "torch.Tensor | None" = None,
     *,
     resolution: int,
     coarse_resolution: int = 0,
@@ -370,6 +375,10 @@ def nn_colsweep_exact(
     re-searched whole (overwriting a certified row with another exact
     result is harmless). Tie-decertified rows skip the coarse stages,
     which can never certify an exact tie.
+
+    ``target_normals`` (M, 3), for point-to-plane: the brute tiers and
+    the global fallback gather the winner's normal beside its coordinates
+    (the sweeps read it from the grid's rows 3-5).
 
     Returns (matched (N,3), normal (N,3), dist (N,)).
     """
@@ -400,7 +409,9 @@ def nn_colsweep_exact(
 
     def tgt6(bi):
         bm = target[bi]
-        return torch.cat([bm, torch.zeros_like(bm)], dim=1)
+        nm = (target_normals[bi].to(bm.dtype) if target_normals is not None
+              else torch.zeros_like(bm))
+        return torch.cat([bm, nm], dim=1)
 
     if coarse_grid is not None and coarse_resolution:
         # Staged budgets: a small first stage for the steady-state drizzle,
@@ -486,26 +497,33 @@ def nn_colsweep_exact(
 
 
 def _pallas_fn(resolution: int, coarse_resolution: int, trange: int,
-               coarse_trange: int, global_fallback: bool, slabs: int = 4,
+               coarse_trange: int, global_fallback: bool,
+               with_normals: bool = False, slabs: int = 4,
                tile_q: int = 128, fine: str = "sweep"):
-    """The ICP loop's nn_fn: (query, target, (grid, coarse)) →
-    (matched, dist). ``fine="zcol"`` runs the z-column sweep, ``trange``
-    being its ``zrange``."""
+    """The ICP loop's nn_fn: (query, target, (grid, coarse, normals)) →
+    (matched, dist), or (matched, dist, normal) ``with_normals`` (the
+    point-to-plane contract). ``fine="zcol"`` runs the z-column sweep,
+    ``trange`` being its ``zrange``."""
 
     def fn(query, target, nn_state):
-        grid, coarse = nn_state
-        m, _nrm, d = nn_colsweep_exact(
+        grid, coarse, normals = nn_state
+        m, nrm, d = nn_colsweep_exact(
             query, target, grid, coarse,
+            normals if with_normals else None,
             resolution=resolution, coarse_resolution=coarse_resolution,
             trange=trange, coarse_trange=coarse_trange,
             global_fallback=global_fallback, slabs=slabs, tile_q=tile_q,
             fine=fine,
         )
+        if with_normals:
+            return m, d, nrm
         return m, d
 
-    # The ICP loop reads these to build the matching query layout: the
-    # z-column sweep needs (x, y)-group tiles, the slab sweep x-groups.
+    # The ICP loop reads these to build the matching query layout (the
+    # z-column sweep needs (x, y)-group tiles, the slab sweep x-groups)
+    # and to check the estimator against the grid's contents.
     fn.tile_q = tile_q
+    fn.with_normals = with_normals
     fn.layout_group = "xy" if fine == "zcol" else "x"
     return fn
 
@@ -517,31 +535,42 @@ def make_pallas_nn_device(
     slabs: int = 4,
     target_dev: "torch.Tensor | None" = None,
     tile_q: int = 128,
+    with_normals: bool = False,
     est: "tuple | None" = None,
     device=None,
+    normals: "torch.Tensor | None" = None,
 ):
-    """Grids + (nn_fn, nn_state, resolution) for the ICP driver.
+    """Grids + (nn_fn, nn_state, resolution) for the ICP driver;
+    ``nn_state`` is (grid, coarse, normals).
 
     Host work is the estimator pass (``estimate_grid_params``, or ``est``
     precomputed) and one bbox sweep; both grid levels are sorted and padded
     on the device of ``target_dev`` (default: ``target_local`` uploaded to
     ``device``). The kernel-regime gate is the JAX package's: volume clouds
     go to the z-column sweep on anisotropic cells, everything else to the
-    slab sweep. The grids carry no normals (point-to-plane mode, ROADMAP
-    P10).
+    slab sweep.
+
+    ``with_normals=True`` estimates the target's normals on its device
+    (cell PCA at the unboosted base resolution: a boosted cell would hold
+    a quarter of the points) and packs them into both grid levels; the
+    nn_fn then returns the winner's normal too. ``normals`` passes normals
+    already estimated at that base resolution (the two-stage fine level
+    builds a second factory over the same target).
     """
     target_local = np.asarray(target_local)
     coarse_trange = None
     est_zrange = None
+    normals_resolution = resolution  # a forced R sizes the normals too
     if est is not None and resolution is None and trange is None:
-        resolution, trange_est, coarse_trange, _base, est_zrange = est
+        (resolution, trange_est, coarse_trange, normals_resolution,
+         est_zrange) = est
     elif resolution is None and trange is None:
-        resolution, trange_est, coarse_trange, _base, est_zrange = (
-            estimate_grid_params(target_local))
+        (resolution, trange_est, coarse_trange, normals_resolution,
+         est_zrange) = estimate_grid_params(target_local)
     else:
         if resolution is None:
-            resolution = auto_resolution_data(
-                target_local, surface_boost_occupancy=32)
+            resolution, normals_resolution = auto_resolution_data(
+                target_local, surface_boost_occupancy=32, return_base=True)
         trange_est = (trange if trange is not None
                       else auto_trange(target_local, resolution))
     # Kernel regime: the z-window column sweep wins on volume clouds when
@@ -560,12 +589,24 @@ def make_pallas_nn_device(
     if target_dev is None:
         target_dev = torch.as_tensor(target_local, dtype=torch.float32,
                                      device=resolve_device(device))
-    coarse_resolution = max(resolution // 4, 8)
-    if coarse_trange is None:
-        coarse_trange = _COARSE_TRANGE_CAP
     ext = float((tmax - tmin).max())
     dev = target_dev.device
     origin = torch.as_tensor(tmin, dtype=torch.float32, device=dev)
+    if not with_normals:
+        normals = None
+    elif normals is None:
+        nr = normals_resolution or resolution
+        with stage("normals") as done:
+            normals = estimate_normals_cellpca_device(
+                target_dev, origin,
+                torch.tensor(max(ext / nr, 1e-9), dtype=torch.float32,
+                             device=dev),
+                resolution=nr)
+            done(normals)
+
+    coarse_resolution = max(resolution // 4, 8)
+    if coarse_trange is None:
+        coarse_trange = _COARSE_TRANGE_CAP
     cell_c = torch.tensor(max(ext / coarse_resolution, 1e-9),
                           dtype=torch.float32, device=dev)
     levels = dict(resolution=resolution, coarse_resolution=coarse_resolution,
@@ -577,19 +618,19 @@ def make_pallas_nn_device(
         grid, coarse = build_zgrids(
             target_dev, origin,
             torch.as_tensor(cell3, dtype=torch.float32, device=dev), cell_c,
-            zrange=zrange, **levels)
+            normals, zrange=zrange, **levels)
         trange = zrange  # the exact chain reads trange as the z budget
     else:
         grid, coarse = build_grids(
             target_dev, origin,
             torch.tensor(max(ext / resolution, 1e-9), dtype=torch.float32,
                          device=dev),
-            cell_c, trange=trange, **levels)
+            cell_c, normals, trange=trange, **levels)
     global_fallback = len(target_local) <= 300_000
     return (
         _pallas_fn(resolution, coarse_resolution, trange, coarse_trange,
-                   global_fallback, slabs=slabs, tile_q=tile_q,
+                   global_fallback, with_normals, slabs=slabs, tile_q=tile_q,
                    fine="sweep" if zrange is None else "zcol"),
-        (grid, coarse),
+        (grid, coarse, normals),
         resolution,
     )

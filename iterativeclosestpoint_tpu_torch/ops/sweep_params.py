@@ -157,9 +157,10 @@ def auto_zrange(
     return cap
 
 
-def estimate_grid_params(target_local, resolution=None):
+def estimate_grid_params(target_local, resolution=None, model=None):
     """Returns (resolution, trange, coarse_trange, normals_resolution,
-    zrange).
+    zrange). ``model`` reuses a precomputed ``_occupancy_model`` of the
+    cloud.
 
     ``resolution`` carries the surface boost (one pow-2 notch finer on
     surface clouds); ``normals_resolution`` is the unboosted base. The
@@ -174,7 +175,8 @@ def estimate_grid_params(target_local, resolution=None):
         R = base = resolution
         tr = auto_trange(target_local, R)
     else:
-        model = _occupancy_model(target_local)
+        if model is None:
+            model = _occupancy_model(target_local)
         R, base = auto_resolution_data(
             target_local, surface_boost_occupancy=32, return_base=True,
             model=model,

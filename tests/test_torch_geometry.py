@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from iterativeclosestpoint_tpu.ops.kabsch import (
     kabsch_masked as jax_kabsch_masked,

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from iterativeclosestpoint_tpu.ops import cellblock as jcb
 from iterativeclosestpoint_tpu.ops import pallas_nn as jpn
@@ -97,7 +98,7 @@ def test_convert_round_trip_and_factory_grid():
     field, equals the port's own factory build, and converts back."""
     tgt = make_cloud(6000, seed=29).astype(np.float32)
     _, (j_fine, j_coarse, _), j_R = jpn.make_pallas_nn_device(tgt)
-    fn, (t_fine, t_coarse), t_R = make_pallas_nn_device(tgt, device="cpu")
+    fn, (t_fine, t_coarse, _), t_R = make_pallas_nn_device(tgt, device="cpu")
     assert t_R == j_R and fn.tile_q == 128 and fn.layout_group == "x"
     for jg, tg in ((j_fine, t_fine), (j_coarse, t_coarse)):
         d = {f: np.asarray(getattr(jg, f)) for f in jg._fields}

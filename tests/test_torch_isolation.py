@@ -24,8 +24,11 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import pkgutil, sys, importlib\n"
         "import iterativeclosestpoint_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, p.__name__ + '.')]\n"
+        "assert 'iterativeclosestpoint_tpu_torch.ops.normals' in names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'iterativeclosestpoint_tpu'"
         " or m.startswith('iterativeclosestpoint_tpu.')]\n"

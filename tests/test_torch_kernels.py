@@ -15,10 +15,14 @@ are bit-identical on rows without an exact tie, and the tie flags equal.
 import numpy as np
 import pytest
 import torch
+from scipy.spatial import cKDTree
 
 from _k3_planted import planted
 from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
 from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
+from iterativeclosestpoint_tpu_torch.ops.normals import (
+    estimate_normals_cellpca_device,
+)
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     build_grid,
     build_zgrid,
@@ -42,7 +46,14 @@ def card():
     return torch.device("cuda")
 
 
-def _setup(dev, n=60_000, R=32, trange=768, dup=False):
+def _normals(t_dev, lo, cell, R):
+    """Cell-PCA normals of the target on the card (the plane path's)."""
+    return estimate_normals_cellpca_device(
+        t_dev, lo, torch.tensor(cell, dtype=torch.float32,
+                                device=t_dev.device), resolution=R)
+
+
+def _setup(dev, n=60_000, R=32, trange=768, dup=False, normals=False):
     tgt = make_cloud(n, seed=3, extent=50.0).astype(np.float32)
     if dup:
         tgt[n // 2:] = tgt[: n - n // 2]
@@ -51,16 +62,19 @@ def _setup(dev, n=60_000, R=32, trange=768, dup=False):
     t_dev = torch.as_tensor(tgt, device=dev)
     lo = tgt.min(axis=0)
     cell = float((tgt.max(axis=0).astype(np.float64) - lo).max()) / R
-    grid = build_grid(t_dev, torch.as_tensor(lo, device=dev),
+    lo_dev = torch.as_tensor(lo, device=dev)
+    grid = build_grid(t_dev, lo_dev,
                       torch.tensor(cell, dtype=torch.float32, device=dev),
-                      resolution=R, trange=trange)
+                      resolution=R, trange=trange,
+                      normals=_normals(t_dev, lo_dev, cell, R) if normals
+                      else None)
     q_dev = torch.as_tensor(q, device=dev)
     rows, _ = grouped_tile_order_device(q_dev, grid.origin, grid.cell_size,
                                         resolution=R)
     return tgt, t_dev, grid, q_dev[rows]
 
 
-def _zcol_setup(dev, zrange, n=200_000, R=32):
+def _zcol_setup(dev, zrange, n=200_000, R=32, normals=False):
     """The volume regime's window: a uniform 10:10:2 box on per-axis cells,
     an (x, y)-group layout and 12 z-window slots per tile."""
     tgt = make_cloud(n, seed=5, kind="uniform", extent=50.0).astype(
@@ -70,9 +84,12 @@ def _zcol_setup(dev, zrange, n=200_000, R=32):
     lo, hi = tgt.min(axis=0).astype(np.float64), tgt.max(axis=0)
     cell3 = torch.as_tensor(np.maximum((hi - lo) / R, 1e-9),
                             dtype=torch.float32, device=dev)
-    grid = build_zgrid(torch.as_tensor(tgt, device=dev),
-                       torch.as_tensor(lo, dtype=torch.float32, device=dev),
-                       cell3, resolution=R, zrange=zrange)
+    t_dev = torch.as_tensor(tgt, device=dev)
+    lo_dev = torch.as_tensor(lo, dtype=torch.float32, device=dev)
+    nrm = (_normals(t_dev, lo_dev, float((hi - lo).max()) / R, R)
+           if normals else None)
+    grid = build_zgrid(t_dev, lo_dev, cell3, resolution=R, zrange=zrange,
+                       normals=nrm)
     q_dev = torch.as_tensor(q, device=dev)
     rows, _ = grouped_tile_order_device(q_dev, grid.origin, grid.cell_size,
                                         resolution=R, group="xy")
@@ -87,16 +104,29 @@ def _same(out_k, out_p):
     assert torch.equal(out_k[:, 0:7][free], out_p[:, 0:7][free])
 
 
-@pytest.mark.parametrize("case", ["tie_free", "dup", "zcol"])
+def _check_normals_rows(grid, trange):
+    """Rows 3-5 hold real unit normals (the plane path's grids)."""
+    nrm = grid.tgt_t[3:6, :-trange]
+    assert float(nrm.abs().amax()) <= 1.0 + 1e-6
+    assert float(nrm[2].abs().sum()) > 0
+
+
+# "normals" cases: rows 3-5 of the grid hold real normals (point-to-plane)
+# and each kernel must return its winner's, bit-identical to plain.
+@pytest.mark.parametrize("case", ["tie_free", "dup", "zcol", "normals",
+                                  "zcol_normals"])
 def test_k1_fused_matches_plain(card, case):
-    if case == "zcol":  # 12 z-window slots of 512 rows, the volume shape
-        win, grid = _zcol_setup(card, 512)
+    if case.startswith("zcol"):  # 12 z-window slots of 512 rows (volume)
+        win, grid = _zcol_setup(card, 512, normals=case == "zcol_normals")
         kw = dict(slabs=12, trange=512, fused=True, slack=win.slack)
     else:
-        _, _, grid, q = _setup(card, dup=case == "dup")
+        _, _, grid, q = _setup(card, dup=case == "dup",
+                               normals=case == "normals")
         win = sweep_window(q, grid, resolution=32, tile_q=128, slabs=4,
                            trange=768, fused=True)
         kw = dict(slabs=4, trange=768, fused=True, slack=win.slack)
+    if case.endswith("normals"):
+        _check_normals_rows(grid, kw["trange"])
     args = (win.base, win.q32, grid.tgt_t)
     before = sk.LAUNCHES["colsweep_fused"]
     out_k = sk.colsweep(*args, **kw)
@@ -105,7 +135,7 @@ def test_k1_fused_matches_plain(card, case):
     _same(out_k, sk.colsweep_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("case", ["tie_free", "dup", "zcol"])
+@pytest.mark.parametrize("case", ["tie_free", "dup", "zcol", "normals"])
 def test_k2_matches_plain(card, case):
     if case == "zcol":  # zcol's slot-wise form: 12 unmasked slots × 3072
         win, grid = _zcol_setup(card, 3072)
@@ -114,10 +144,13 @@ def test_k2_matches_plain(card, case):
                            q32=win.q32[:n_t * 128].contiguous())
         kw = dict(slabs=12, trange=3072, fused=False)
     else:
-        _, _, grid, q = _setup(card, R=8, trange=8192, dup=case == "dup")
+        _, _, grid, q = _setup(card, R=8, trange=8192, dup=case == "dup",
+                               normals=case == "normals")
         win = sweep_window(q, grid, resolution=8, tile_q=128, slabs=4,
                            trange=8192, fused=False)
         kw = dict(slabs=4, trange=8192, fused=False)
+    if case == "normals":
+        _check_normals_rows(grid, kw["trange"])
     args = (win.base, win.q32, grid.tgt_t)
     before = sk.LAUNCHES["colsweep"]
     out_k = sk.colsweep(*args, **kw)
@@ -250,3 +283,32 @@ def test_exact_chain_on_card_matches_cpu(card):
     m_p, _, d_p = nn_colsweep_exact(shifted.cpu(), t_dev.cpu(), cpu(grid),
                                     cpu(coarse), **kw)
     assert torch.equal(m_k.cpu(), m_p) and torch.equal(d_k.cpu(), d_p)
+
+
+def test_exact_chain_with_normals_on_card_matches_cpu(card):
+    """The repair chain with normals: a shifted query forces coarse
+    repair, and far outliers (their own tiles at the end of the layout)
+    the brute tier; every row's normal is its winner's, on the card as on
+    the CPU."""
+    tgt, t_dev, grid, q = _setup(card, n=30_000, R=32, trange=2048,
+                                 normals=True)
+    nrm = _normals(t_dev, grid.origin, float(grid.cell_size), 32)
+    far = torch.as_tensor(np.random.default_rng(8).uniform(
+        -200, 200, (300, 3)).astype(np.float32), device=card)
+    shifted = torch.cat([q + 1.5 * grid.cell_size, far]).contiguous()
+    coarse = build_grid(t_dev, grid.origin, grid.cell_size * 4,
+                        resolution=8, trange=8192, normals=nrm)
+    kw = dict(resolution=32, coarse_resolution=8, slabs=4, trange=2048,
+              coarse_trange=8192)
+    before = sk.LAUNCHES["brute_nn"]
+    m_k, n_k, d_k = nn_colsweep_exact(shifted, t_dev, grid, coarse, nrm,
+                                      **kw)
+    assert sk.LAUNCHES["brute_nn"] > before
+    cpu = lambda g: type(g)(*(x.cpu() for x in g))  # noqa: E731
+    m_p, n_p, d_p = nn_colsweep_exact(shifted.cpu(), t_dev.cpu(), cpu(grid),
+                                      cpu(coarse), nrm.cpu(), **kw)
+    assert torch.equal(m_k.cpu(), m_p) and torch.equal(d_k.cpu(), d_p)
+    assert torch.equal(n_k.cpu(), n_p)
+    d0, idx = cKDTree(tgt).query(m_p.numpy())
+    assert not d0.any()
+    assert torch.equal(nrm.cpu()[torch.as_tensor(idx)], n_p)

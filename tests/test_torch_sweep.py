@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from scipy.spatial import cKDTree
 
 from iterativeclosestpoint_tpu.ops import pallas_nn as jpn

@@ -12,6 +12,7 @@ included. Tolerance: none.
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
     BIG,

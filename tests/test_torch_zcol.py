@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from scipy.spatial import cKDTree
 
 from iterativeclosestpoint_tpu.models.icp import icp_register as jax_icp
@@ -255,7 +256,7 @@ def test_zcol_registration_matches_jax():
     assert fn.layout_group == "xy"
     kw = dict(max_iterations=10, tolerance=1e-9)
     ref = jax_icp(src, tgt, dtype=jnp.float32, prepared_nn=j_prep, **kw)
-    res = icp_register(src, tgt, prepared_nn=(fn, (grid, coarse), R),
+    res = icp_register(src, tgt, prepared_nn=(fn, (grid, coarse, None), R),
                        device="cpu", **kw)
     assert res.iterations == ref.iterations
     assert res.stop_reason == ref.stop_reason
