@@ -38,7 +38,8 @@ Phases, one or more lines each:
    exceed the kernel's, so K3's kernel time is that of its launch step
    (``brute_keys``: key fill and kernel) over 20 back-to-back launches,
    with the wrapper call's time beside it; the library yardstick (chunked
-   ``torch.cdist``) is timed at the 1M shapes only. The data-sheet bound
+   ``torch.cdist`` + argmin) is the median of 3 calls at the 1M shapes and
+   one call at the 10M shapes (up to a minute each). The data-sheet bound
    is the larger of bytes / 3.35 TB/s and 9 f32 operations per
    query–candidate pair / 67 TFLOP/s (the H100 SXM data-sheet peaks).
    That rate counts an FMA as two operations, but the d² contract forbids
@@ -83,11 +84,28 @@ Phases, one or more lines each:
    a 5 + 5 iteration run resumed through ``resume_carry`` equals the
    10-iteration run (history and transform, bit for bit), and two
    estimations of the 1M target's normals are bit-equal (timed);
-7. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
-   the main paths (headline, volume, plane, plane_10m), error, times,
-   data-sheet bound and issue floor at its most launched shape, and every
-   measured shape under ``shapes`` with its launches per path;
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. the product surface, ``icp-torch`` (``cli.main``) in this process in a
+   temporary directory: (a) ``synth`` a 1M-point terrain pair as LAS
+   (seed 7, noise 0.02, the CLI's default extent of 50 m) and ``info
+   --full``; (b) ``smoke``: both regimes' exact chains against K3; (c)
+   ``run --multiscale --nn-backend pallas --max-iterations 20`` with
+   metrics, history, checkpoint and HTML: its wall, the session's
+   duration and the host I/O stages (decode of each file, the registered
+   LAS, the reports, the HTML); the library call on the decoded clouds
+   with the session's kwargs must give the same iterations, stop code and
+   transform bit for bit, the metrics log's records must equal its
+   history, and the final pose is held against cKDTree; a shape the run
+   launched that phase 3 did not hold is held against plain on this
+   pair's grids; (d) on a 250k pair without multiscale, 5 + 5 iterations
+   resumed from the checkpoint equal 10 in one run, and a run in live
+   segments of 5 streams the one-shot history, bit for bit; (e)
+   ``replay -k 3``, ``status`` and ``view`` to HTML; (f) ``graph``,
+   ``bench`` and ``run --parallel dp`` exit non-zero naming P14, P9, P15;
+8. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
+   the main paths (headline, volume, plane, plane_10m, product), error,
+   times, data-sheet bound and issue floor at its most launched shape,
+   and every measured shape under ``shapes`` with its launches per path;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without CUDA it exits with code 1 before anything else.
@@ -95,6 +113,8 @@ line. Without CUDA it exits with code 1 before anything else.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -133,6 +153,8 @@ K3_CTAS_PER_SM = (2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32, 48)
 BOX_N = 50_000          # phase 6 uniform box
 REPAIR_N = 250_000      # phase 5 cloud size
 CARD_CPU_N = 60_000     # phase 6 cloud size
+PRODUCT_N = 1_000_000   # phase 7 LAS pair (icp-torch synth)
+RESUME_N = 250_000      # phase 7 resume pair
 DEVICE = "cuda"
 
 
@@ -155,10 +177,10 @@ def make_data(config):
                 tgt_local=(tgt - offset).astype(np.float32))
 
 
-def cuda_ms(fn, reps=5):
+def cuda_ms(fn, reps=5, warmup=True):
     """Median CUDA-event time of ``fn()`` over ``reps`` calls (after one
-    warm-up call), and the last result."""
-    out = fn()
+    warm-up call unless ``warmup`` is false), and the last result."""
+    out = fn() if warmup else None
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -242,13 +264,16 @@ def _compare_sweeps(out_k, out_p):
 
 
 def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
-                library=None, device_ms=None, plain_reps=5):
+                library=None, device_ms=None, plain_reps=5,
+                library_once=False):
     """Time ``kernel`` and ``plain`` (and ``library``, K3's yardstick) on
     the same inputs, hold kernel against plain with ``compare`` (returns
     max_abs_err and a note), and compute the data-sheet bound and the
     issue floor. ``device_ms``, where given (K3), is the kernel's own
     device time: it stands for the kernel, and the wrapper call's CUDA-event
-    time is reported beside it. Prints one line and returns the entry."""
+    time is reported beside it. ``library_once``: one timed library call
+    with no warm-up (the 10M shapes, where one call takes up to a minute).
+    Prints one line and returns the entry."""
     ms, out_k = cuda_ms(kernel)
     wrapper = {}
     if device_ms is not None:
@@ -260,7 +285,8 @@ def _timed_pair(label, kernel, plain, compare, pairs, nbytes, issue_rate,
         note += f", wrapper call {wrapper['wrapper_ms']:.4f} ms"
     lib_ms = None
     if library is not None:
-        lib_ms, lib_out = cuda_ms(library, reps=3)
+        lib_ms, lib_out = (cuda_ms(library, reps=1, warmup=False)
+                           if library_once else cuda_ms(library, reps=3))
         agree = float((lib_out == out_k[0]).float().mean())
         note += (f", chunked cdist + argmin {lib_ms:.4f} ms (winner "
                  f"agreement {agree:.6f})")
@@ -382,8 +408,9 @@ def _k3_kernel_ms(qq, tt, splits, reps=20):
 
 def _hold_k3(results, qq, tt, issue_rate, replaces, full=True):
     """K3 against plain at (queries, targets) = the shapes of ``qq``,
-    ``tt``. ``full``: also the library yardstick and the kernel at other
-    split counts (their keys must equal the chosen count's)."""
+    ``tt``, and the library yardstick. ``full``: the yardstick's median of
+    3 and the kernel at other split counts (their keys must equal the
+    chosen count's); else one timed yardstick call."""
     from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
     from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
         brute_keys,
@@ -419,7 +446,7 @@ def _hold_k3(results, qq, tt, issue_rate, replaces, full=True):
         "CTAs)", lambda: nn_brute(qq, tt),
         lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
         (n_q + n_t) * 12 + n_q * 8, issue_rate,
-        library=(lambda: cdist_argmin(qq, tt)) if full else None,
+        library=lambda: cdist_argmin(qq, tt), library_once=not full,
         device_ms=by_splits[splits], plain_reps=5 if full else 2)
     entry.update(shape=f"{n_q} x {n_t}", replaces=replaces, splits=splits)
     _record(results, "brute_nn", (n_q, n_t), entry)
@@ -1076,6 +1103,236 @@ def phase_card_vs_cpu(data):
     check(same_normals, "normal estimation is not deterministic")
 
 
+def _cli(*argv, expect_ok=True):
+    """``icp-torch`` in this process (``cli.main``), its standard output
+    captured; returns (exit code, output)."""
+    from iterativeclosestpoint_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    out = buf.getvalue()
+    if expect_ok:
+        check(rc == 0, f"icp-torch {argv[0]} exited {rc}: {out[-3000:]}")
+    return rc, out
+
+
+def _iteration_rows(path):
+    rows = [json.loads(line) for line in open(path)]
+    return [{k: v for k, v in r.items() if k != "ts"} for r in rows
+            if r["kind"] == "iteration"]
+
+
+def phase_product(measured, issue_rate):
+    """Phase 7, the product surface: ``icp-torch`` (``cli.main``) on the
+    card in a temporary directory. (a) synth a 1M terrain pair as LAS and
+    info; (b) smoke; (c) a multiscale pallas run with metrics, history,
+    checkpoint and HTML, held against the library call on the decoded
+    clouds and against cKDTree at its final pose; (d) resume and live
+    segments on a 250k pair, bit for bit; (e) replay, status and view;
+    (f) the unported verbs exit non-zero with their item. Returns the
+    launches by shape of run (c)."""
+    import tempfile
+    from pathlib import Path
+
+    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+    from iterativeclosestpoint_tpu_torch.io.las import read_las
+    from iterativeclosestpoint_tpu_torch.models.multiscale import (
+        _prepare_fine,
+    )
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.se3 import registration_error
+    from iterativeclosestpoint_tpu_torch.runtime.checkpoint import (
+        load_checkpoint,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.metrics import (
+        read_history_json,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+    from iterativeclosestpoint_tpu_torch.utils.config import ICPConfig
+    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
+
+    dev = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        src_las, tgt_las = d / "src.las", d / "tgt.las"
+        # (a) synth + info
+        t0 = time.perf_counter()
+        _cli("synth", src_las, tgt_las, "--n", PRODUCT_N, "--seed", 7,
+             "--noise", 0.02, "--transform-out", d / "truth.json")
+        t1 = time.perf_counter()
+        _, info = _cli("info", src_las, "--full")
+        print(f"[7a synth] {PRODUCT_N} + {PRODUCT_N} points written in "
+              f"{t1 - t0:.3f} s ({src_las.stat().st_size} bytes each); "
+              "info --full: " + "; ".join(
+                  ln for ln in info.splitlines() if "bounds" in ln),
+              flush=True)
+
+        # (b) smoke: both regimes' exact chains against K3
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        _, out = _cli("smoke")
+        print(f"[7b smoke] {time.perf_counter() - t0:.3f} s, launches "
+              f"{dict(sk.LAUNCHES)}: " + "; ".join(out.splitlines()),
+              flush=True)
+        check(out.count("exact vs brute force OK on cuda") == 2,
+              f"smoke output: {out}")
+
+        # (c) the multiscale pallas run
+        run = ("run", src_las, tgt_las, "-o", d / "reg.las", "--multiscale",
+               "--nn-backend", "pallas", "--max-iterations", 20,
+               "--metrics", d / "m.jsonl", "--history", d / "h.jsonl",
+               "--checkpoint", d / "c.json", "--html", d / "v.html")
+        sk.reset_launches()
+        torch.cuda.synchronize()
+        with collect(sync=False) as col:
+            t0 = time.perf_counter()
+            _, out = _cli(*run)
+            wall = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        by_shape = dict(sk.LAUNCH_SHAPES)
+        duration = json.loads(
+            (d / "h.jsonl").read_text().splitlines()[-1])["duration_s"]
+        st = col.stages
+        io_ms = {k: st[k] * 1e3 for k in ("load_source", "load_target",
+                                          "write_las", "report", "html")}
+        print(f"[7c run] wall {wall:.4f} s; session duration_s "
+              f"{duration:.4f} s; host I/O ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in io_ms.items())
+              + f"; launches {launches}", flush=True)
+        for line in col.lines():
+            print(f"[7c run] stage (unsynced): {line}")
+        for line in out.splitlines()[-3:]:
+            print(f"[7c run] icp-torch: {line}")
+
+        report = read_history_json(d / "reg_transform.json")
+        src, _ = read_las(src_las)
+        tgt, _ = read_las(tgt_las)
+        cfg = ICPConfig(max_iterations=20, nn_backend="pallas")
+        lib_kw = dict(max_iterations=cfg.max_iterations,
+                      tolerance=cfg.tolerance,
+                      sigma_multiplier=cfg.sigma_multiplier, mode=cfg.mode,
+                      nn_backend=cfg.nn_backend, estimator=cfg.estimator,
+                      robust=cfg.robust,
+                      grid_resolution=cfg.grid_resolution or None,
+                      cell_capacity=cfg.cell_capacity, device=DEVICE)
+        lib = icp_register_multiscale(src, tgt, **lib_kw).final
+        T_cli = np.asarray(report["transform"])
+        same = np.array_equal(lib.transform, T_cli)
+        pts = torch.as_tensor(src, dtype=torch.float64)
+        gap = float(registration_error(torch.as_tensor(lib.transform),
+                                       torch.as_tensor(T_cli), pts))
+        truth = np.asarray(json.loads((d / "truth.json").read_text()))
+        err = float(registration_error(torch.as_tensor(T_cli),
+                                       torch.as_tensor(truth), pts))
+        print(f"[7c run] library call on the decoded clouds: "
+              f"{lib.iterations} iterations, {lib.message!r} (icp-torch: "
+              f"{report['iterations']}, {report['message']!r}); transform "
+              f"bit-equal {same}, registration error between them "
+              f"{gap:.3e} m; against truth.json {err:.6f} m (not gated)",
+              flush=True)
+        check((lib.iterations, lib.stop_reason) == (
+            report["iterations"], report["stop_reason"]),
+            "icp-torch and the library call differ in iterations or stop")
+        check(same and gap <= 1e-6, "icp-torch's transform is not the "
+              f"library call's: {gap} m")
+        rows = _iteration_rows(d / "m.jsonl")
+        check([r["rmse"] for r in rows] == [float(x) for x in
+                                            lib.history_rmse],
+              "the metrics log's records differ from history_rmse")
+        offset = center_offset(tgt)
+        pdata = dict(src=src, tgt=tgt, offset=offset,
+                     src_local=(src - offset).astype(np.float32),
+                     tgt_local=(tgt - offset).astype(np.float32))
+        _, prepared, _ = _prepare_fine(src, tgt, dict(nn_backend="pallas"),
+                                       dev)
+        _final_pose("7c run", pdata, T_cli, prepared)
+        # The 1M pair is synthesized at the CLI's extent, not the
+        # headline's: where run (c) launched a shape phase 3 did not hold,
+        # hold this pair's grids and coarse shape against plain.
+        unheld = sorted((nm, sh) for nm, sh in by_shape
+                        if _shape_key(nm, sh) not in measured[nm])
+        print(f"[7c run] launched shapes phase 3 did not hold: {unheld}",
+              flush=True)
+        if unheld:
+            tgt_dev = torch.as_tensor(pdata["tgt_local"], device=dev)
+            _hold_slab_grids(measured, "7 product 1M", prepared,
+                             pdata["tgt_local"], tgt_dev,
+                             np.random.default_rng(7), issue_rate,
+                             full=False)
+            stride = -(-len(src) // 30_000)
+            _hold_k3(measured, torch.as_tensor(np.ascontiguousarray(
+                         pdata["src_local"][::stride]), device=dev),
+                     torch.as_tensor(np.ascontiguousarray(
+                         pdata["tgt_local"][::stride]), device=dev),
+                     issue_rate, "iterativeclosestpoint_tpu/ops/pallas_nn.py:"
+                     "1103", full=False)
+            del tgt_dev
+        del prepared
+        _launch_checks("7c run", by_shape, measured, launches)
+        check(launches["colsweep"] > 0, "K2 never launched in run (c)")
+
+        # (d) resume and live segments on a 250k pair, no multiscale
+        rs, rt = d / "rs.las", d / "rt.las"
+        _cli("synth", rs, rt, "--n", RESUME_N, "--seed", 11, "--noise",
+             0.02)
+        base = ("run", rs, rt, "--nn-backend", "pallas")
+        t0 = time.perf_counter()
+        _cli(*base, "--max-iterations", 10, "--checkpoint", d / "a.json",
+             "--metrics", d / "a.jsonl")
+        _cli(*base, "--max-iterations", 5, "--checkpoint", d / "b.json")
+        _cli(*base, "--resume", d / "b.json", "--max-iterations", 10,
+             "--checkpoint", d / "c2.json")
+        _cli(*base, "--live-every", 5, "--max-iterations", 10,
+             "--metrics", d / "l.jsonl")
+        a, b, c = (load_checkpoint(d / f) for f in
+                   ("a.json", "b.json", "c2.json"))
+        same_resume = (np.array_equal(a["transform"], c["transform"])
+                       and b["rmse_history"] + c["rmse_history"]
+                       == a["rmse_history"])
+        live, once = _iteration_rows(d / "l.jsonl"), _iteration_rows(
+            d / "a.jsonl")
+        print(f"[7d resume] {RESUME_N} points: iterations a {a['iteration']}"
+              f", b {b['iteration']}, c {c['iteration']}; 5 + 5 resumed == "
+              f"10 in one run (transform, rmse trail): {same_resume}; live "
+              f"segments of 5: {len(live)} streamed records == the one-shot "
+              f"history: {live == once}; {time.perf_counter() - t0:.3f} s "
+              "for the four runs", flush=True)
+        check(same_resume, "the resumed CLI run differs from one run")
+        check(len(live) == a["iteration"] and live == once,
+              "the streamed records differ from the one-shot history")
+
+        # (e) replay, status, view
+        _cli("replay", src_las, d / "reg_transform.json", "-k", 3, "-o",
+             d / "r3.las")
+        T3 = report["history"][2]["transform"]
+        r3, _ = read_las(d / "r3.las")
+        rgap = float(np.abs(r3 - (src @ T3[:3, :3].T + T3[:3, 3])).max())
+        _, status = _cli("status", "--history", d / "h.jsonl")
+        t0 = time.perf_counter()
+        _cli("view", src_las, tgt_las, "-o", d / "v2.html", "--history",
+             d / "reg_transform.json")
+        print(f"[7e replay] iteration 3 against the source under "
+              f"history_transform[2]: max |diff| {rgap:.3e} m (LAS "
+              f"quantum 1e-3 m); status: {status.splitlines()[0]}; view "
+              f"HTML {(d / 'v2.html').stat().st_size} bytes in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        check(rgap <= 0.0005 + 1e-6, f"replay differs: {rgap}")
+        check("runs: 1" in status, status)
+
+        # (f) the verbs that are not ported yet
+        for argv, item in ((("graph", src_las, tgt_las), "P14"),
+                           (("bench",), "P9"),
+                           (("run", src_las, tgt_las, "--parallel", "dp"),
+                            "P15")):
+            rc, out = _cli(*argv, expect_ok=False)
+            print(f"[7f unported] icp-torch {argv[0]}: exit {rc}, "
+                  f"{out.strip()}", flush=True)
+            check(rc != 0 and f"ROADMAP {item}" in out,
+                  f"{argv[0]} did not exit non-zero naming {item}")
+    return by_shape
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1112,6 +1369,8 @@ def main() -> int:
     stamp(5)
     phase_card_vs_cpu(data)
     stamp(6)
+    paths["product"] = phase_product(measured, issue_rate)
+    stamp(7)
 
     table = [
         ("colsweep_fused", "colsweep_fused.cu", 1165),
@@ -1154,7 +1413,7 @@ def main() -> int:
             **{f: top[f] for f in keys}, "shape": top["shape"],
             "shapes": shapes, "passed": True,
         })
-    print(f"[7] total {time.perf_counter() - t_start:.3f} s")
+    print(f"[t] total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

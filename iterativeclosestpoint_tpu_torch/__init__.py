@@ -9,10 +9,16 @@ written for Hopper (``csrc/``, built with nvcc at first use into
 runs each kernel's plain PyTorch version.
 
 - ``ops``     — SE(3), Kabsch, brute-force NN, the slab-sweep grid, its
-                estimators, kernels and repair chain.
+                estimators, kernels and repair chain, normals, downsampling.
 - ``models``  — pairwise ICP and coarse-to-fine multiscale ICP.
-- ``runtime`` — stage timing.
-- ``utils``   — host reductions, synthetic fixtures, device choice.
+- ``io``      — LAS 1.2 read/write (host).
+- ``runtime`` — the registration session, checkpoints, metrics and run
+                records, viewers (HTML, PNG), the native host library,
+                profiling, the kernel smoke check and stage timing.
+- ``utils``   — settings, host reductions, synthetic fixtures, device
+                choice.
+- ``cli``     — the ``icp-torch`` command (the JAX package's ``icp``
+                twin; ``--device cpu`` runs the plain versions).
 - ``convert`` — moves grids and loop carries between the two packages.
 """
 

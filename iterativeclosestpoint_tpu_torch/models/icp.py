@@ -98,6 +98,24 @@ class ICPResult:
     center_offset: Optional[np.ndarray] = None
     nn_resolution: Optional[int] = None
 
+    def iteration_records(self):
+        """History as a list of dicts (the iterationCompleted payload)."""
+        return [
+            {
+                "iteration": i + 1,
+                "rmse": float(self.history_rmse[i]),
+                "valid_points": int(self.history_valid[i]),
+                "outlier_points": int(self.history_outliers[i]),
+                "transform": self.history_transform[i],
+                "rotation_angle_deg": float(self.history_rotation_deg[i]),
+                "translation_norm": float(self.history_translation[i]),
+                "mean_dist": float(self.history_mean_dist[i]),
+                "std_dist": float(self.history_std_dist[i]),
+                "threshold": float(self.history_threshold[i]),
+            }
+            for i in range(self.iterations)
+        ]
+
 
 def iteration_statistics(dist, weight, sigma_multiplier, widen_first: bool,
                          is_first: bool):
@@ -360,9 +378,14 @@ def _rebase_transform(T_local: np.ndarray, offset: np.ndarray) -> np.ndarray:
     return T
 
 
-def _rotation_deg(T: np.ndarray) -> float:
-    return float(np.degrees(np.arccos(np.clip(
-        (np.trace(T[:3, :3]) - 1) / 2, -1, 1))))
+def _pose_magnitudes(T_world: np.ndarray):
+    """(rotation degrees, translation norms) of a (k, 4, 4) stack: one
+    formula for the result's history and the streamed records, so the two
+    agree bit for bit (the norm of a single vector rounds differently
+    from the row norms of a stack)."""
+    rot = np.degrees(np.arccos(np.clip(
+        (np.trace(T_world[:, :3, :3], axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    return rot, np.linalg.norm(T_world[:, :3, 3], axis=1)
 
 
 _HIST_KEYS = ("h_rmse", "h_valid", "h_out", "h_T", "h_mean", "h_std", "h_thr")
@@ -402,6 +425,7 @@ def _run_segmented(dispatch, offset, *, max_iterations: int,
 
         if progress_callback is not None:
             seg_T_world = _rebase_transform(host["h_T"][:k], offset)
+            seg_rot, seg_t = _pose_magnitudes(seg_T_world)
             for i in range(k):
                 Tw = seg_T_world[i]
                 progress_callback({
@@ -410,8 +434,8 @@ def _run_segmented(dispatch, offset, *, max_iterations: int,
                     "valid_points": int(host["h_valid"][i]),
                     "outlier_points": int(host["h_out"][i]),
                     "transform": Tw,
-                    "rotation_angle_deg": _rotation_deg(Tw),
-                    "translation_norm": float(np.linalg.norm(Tw[:3, 3])),
+                    "rotation_angle_deg": float(seg_rot[i]),
+                    "translation_norm": float(seg_t[i]),
                     "mean_dist": float(host["h_mean"][i]),
                     "std_dist": float(host["h_std"][i]),
                     "threshold": float(host["h_thr"][i]),
@@ -493,13 +517,15 @@ def _compose_callback(cb, T_init):
         # transform is the resume path.
         rec = {k: v for k, v in rec.items()
                if k not in ("transform_local", "offset")}
-        Tw = rec["transform"] @ T_init
-        rec["transform"] = Tw
+        # A stack of one: the result's history is composed as a stack.
+        Tw = np.matmul(rec["transform"][None], T_init)
+        rec["transform"] = Tw[0]
         # Magnitudes follow the composed transform (run-relative values
         # would jump at a stage or resume boundary).
         if "rotation_angle_deg" in rec:
-            rec["rotation_angle_deg"] = _rotation_deg(Tw)
-            rec["translation_norm"] = float(np.linalg.norm(Tw[:3, 3]))
+            rot, t = _pose_magnitudes(Tw)
+            rec["rotation_angle_deg"] = float(rot[0])
+            rec["translation_norm"] = float(t[0])
         cb(rec)
 
     return wrapped
@@ -562,6 +588,10 @@ def icp_register(
     ``device``: None means the card (raises without CUDA); "cpu" runs the
     plain PyTorch versions of the kernels.
 
+    ``cell_capacity`` sizes the hashgrid backend's cells (not ported yet,
+    ROADMAP P16: that backend raises); every other backend ignores it, as
+    in the JAX package.
+
     ``estimator``: "point" (the reference's Kabsch) or "plane"
     (point-to-plane on cell-PCA target normals; nn_backend "bruteforce"
     or "pallas"). ``robust``: "none", "huber" or "tukey" reweights the
@@ -590,9 +620,6 @@ def icp_register(
     Mutually exclusive with ``initial_transform``.
     """
     dev = resolve_device(device)
-    if cell_capacity:
-        raise NotImplementedError(
-            "cell_capacity is not ported yet (ROADMAP P16)")
     if estimator not in ("point", "plane"):
         raise ValueError(f"unknown estimator {estimator!r}")
     if robust not in ("none", "huber", "tukey"):
@@ -728,11 +755,8 @@ def icp_register(
         res.transform = res.transform @ T_init
         res.history_transform = res.history_transform @ T_init
         # Rotation/translation histories follow the composed transforms.
-        trc = np.trace(res.history_transform[:, :3, :3], axis1=1, axis2=2)
-        res.history_rotation_deg = np.degrees(
-            np.arccos(np.clip((trc - 1) / 2, -1, 1)))
-        res.history_translation = np.linalg.norm(
-            res.history_transform[:, :3, 3], axis=1)
+        (res.history_rotation_deg,
+         res.history_translation) = _pose_magnitudes(res.history_transform)
         # The local carry does not include T_init.
         res.carry_transform_local = None
         res.center_offset = None
@@ -748,11 +772,7 @@ def package_result(out, offset, return_registered: bool = True) -> ICPResult:
     success = stop not in (TOO_FEW_VALID, STOPPED, NUMERICAL_ERROR)
 
     h_T_world = _rebase_transform(host["h_T"][:k], offset)
-    rot_deg = np.degrees(np.arccos(np.clip(
-        (np.trace(h_T_world[:, :3, :3], axis1=1, axis2=2) - 1) / 2, -1, 1,
-    ))) if k else np.zeros((0,))
-    t_norm = (np.linalg.norm(h_T_world[:, :3, 3], axis=1) if k
-              else np.zeros((0,)))
+    rot_deg, t_norm = _pose_magnitudes(h_T_world)
     return ICPResult(
         success=success,
         message=_STOP_MESSAGES.get(stop, "unknown"),

@@ -23,7 +23,9 @@ The JAX package enqueued the coarse inputs before the bulk uploads and
 deferred the fine grid build behind the coarse loop, working around a
 FIFO host-to-device queue on the TPU host (``multiscale.py:143-235``).
 That ordering is left out on purpose: here the fine level's upload,
-grid estimate and grid build simply run after the coarse level.
+grid estimate and grid build simply run after the coarse level, and the
+``overlap_device_prep`` option that switched it is accepted and changes
+nothing.
 """
 
 from __future__ import annotations
@@ -128,6 +130,8 @@ def icp_register_multiscale(
     mesh=None,
     fine_path: str = "auto",
     initial_transform: Optional[np.ndarray] = None,
+    coarse_nn_backend: str = "auto",
+    overlap_device_prep: bool = True,
     device=None,
     **fine_kwargs,
 ) -> MultiscaleResult:
@@ -136,9 +140,12 @@ def icp_register_multiscale(
     ``strides``: explicit pyramid, e.g. (16, 4, 1); default = one coarse
     level with stride ceil(N / coarse_max_points) (plus sqrt-spaced levels
     for very large clouds) then full resolution. ``device``: None means the
-    card; "cpu" runs the plain versions. ``fine_kwargs`` go to the final
-    full-resolution ``icp_register`` (nn_backend, max_iterations,
-    tolerance, mode, ...).
+    card; "cpu" runs the plain versions. ``coarse_nn_backend`` ("auto",
+    "bruteforce" or "pallas") is the coarse levels' NN backend.
+    ``overlap_device_prep`` is the JAX package's TPU upload ordering; it is
+    accepted and changes nothing here (see the module docstring).
+    ``fine_kwargs`` go to the final full-resolution ``icp_register``
+    (nn_backend, max_iterations, tolerance, mode, ...).
     """
     if mesh is not None or fine_path == "partitioned":
         raise NotImplementedError(
@@ -146,6 +153,14 @@ def icp_register_multiscale(
             "ported yet (ROADMAP P15)")
     if fine_path != "auto":
         raise ValueError(f"unknown fine_path {fine_path!r}")
+    # Checked before any level runs, not by the first coarse level.
+    if coarse_nn_backend in ("cellblock", "hashgrid"):
+        raise NotImplementedError(
+            f"coarse_nn_backend={coarse_nn_backend!r} is not ported yet "
+            "(ROADMAP P16)")
+    if coarse_nn_backend not in ("auto", "bruteforce", "pallas"):
+        raise ValueError(f"unknown coarse_nn_backend {coarse_nn_backend!r}")
+    del overlap_device_prep  # the TPU upload ordering; see the docstring
     dev = resolve_device(device)
     source = np.asarray(source, np.float64)
     target = np.asarray(target, np.float64)
@@ -179,7 +194,8 @@ def icp_register_multiscale(
                 res = icp_register(
                     source[::stride], target[::stride], dtype=dtype,
                     initial_transform=T, max_iterations=coarse_iterations,
-                    tolerance=coarse_tolerance, nn_backend="auto",
+                    tolerance=coarse_tolerance,
+                    nn_backend=coarse_nn_backend,
                     mode=fine_kwargs.get("mode", "gui"),
                     return_registered=False, device=dev,
                 )

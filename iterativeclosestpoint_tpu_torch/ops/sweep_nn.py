@@ -539,6 +539,7 @@ def make_pallas_nn_device(
     est: "tuple | None" = None,
     device=None,
     normals: "torch.Tensor | None" = None,
+    kernel: str = "auto",
 ):
     """Grids + (nn_fn, nn_state, resolution) for the ICP driver;
     ``nn_state`` is (grid, coarse, normals).
@@ -548,7 +549,9 @@ def make_pallas_nn_device(
     on the device of ``target_dev`` (default: ``target_local`` uploaded to
     ``device``). The kernel-regime gate is the JAX package's: volume clouds
     go to the z-column sweep on anisotropic cells, everything else to the
-    slab sweep.
+    slab sweep. ``kernel`` "sweep" or "zcol" forces one of the two, as the
+    JAX package's option does (the kernel smoke check runs both on one
+    target).
 
     ``with_normals=True`` estimates the target's normals on its device
     (cell PCA at the unboosted base resolution: a boosted cell would hold
@@ -577,13 +580,19 @@ def make_pallas_nn_device(
     # its candidate count (12 slots × zrange, with the (x, y)-group
     # layout's padding) undercuts slabs × trange.
     zrange = None
-    if trange is None and trange_est >= 2048 and resolution <= 128:
+    if kernel not in ("auto", "sweep", "zcol"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if (kernel == "auto" and trange is None and trange_est >= 2048
+            and resolution <= 128):
         zr_est = (est_zrange if est_zrange is not None
                   else auto_zrange(target_local, resolution, tile_q=tile_q))
         pad = 1.0 + (resolution**2 * (tile_q - 1) / 2) / max(
             len(target_local), 1)
         if 12 * zr_est * pad < 0.7 * slabs * trange_est:
             zrange = zr_est
+    if kernel == "zcol":
+        zrange = (est_zrange if est_zrange is not None
+                  else auto_zrange(target_local, resolution, tile_q=tile_q))
     trange = trange_est
     tmin, tmax = bbox(target_local)
     if target_dev is None:

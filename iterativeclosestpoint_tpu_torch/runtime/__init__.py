@@ -1,1 +1,2 @@
-"""Runtime helpers: stage timing."""
+"""Runtime: session orchestration, native bindings, checkpointing,
+metrics, viewers, profiling, the kernel smoke check and stage timing."""

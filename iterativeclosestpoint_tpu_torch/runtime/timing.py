@@ -113,3 +113,8 @@ def collect(sync: bool = True):
         yield col
     finally:
         _active.reset(tok)
+
+
+def active() -> "StageCollector | None":
+    """The collector of the enclosing ``collect`` block, or None."""
+    return _active.get()

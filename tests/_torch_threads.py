@@ -24,11 +24,3 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield n
     torch.set_num_threads(n)
-
-
-@pytest.fixture
-def default_torch_threads(one_torch_thread):
-    """Torch's own thread count for one test of a one-thread module."""
-    torch.set_num_threads(one_torch_thread)
-    yield
-    torch.set_num_threads(1)

@@ -16,10 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_threads import (  # noqa: F401
-    default_torch_threads,
-    one_torch_thread,
-)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from iterativeclosestpoint_tpu.models.icp import icp_register as jax_icp
 from iterativeclosestpoint_tpu.models.multiscale import (
@@ -66,22 +63,29 @@ def test_f64_brute_trajectory_matches_oracle(mode, seed):
                                atol=1e-8)
 
 
-def test_f32_pallas_icp_matches_jax(default_torch_threads):
-    """At torch's own thread count: the f32 trajectory's iteration count
-    follows the reductions' order, which the thread count sets (one
-    thread stops here one iteration before the JAX package)."""
-    src, tgt, _ = make_registration_pair(n=6000, seed=83, noise_sigma=0.01)
+def test_f32_pallas_icp_matches_jax(one_torch_thread):
+    """At one thread and at torch's own thread count. A reduction's order
+    follows the thread count, so a fixture whose convergence test is a
+    near miss stops one iteration apart on different counts; this one
+    (its first |ΔRMSE| below the tolerance is ~7e-8, against 1e-6) stops
+    where the JAX package does on every count."""
+    src, tgt, _ = make_registration_pair(n=6000, seed=87, noise_sigma=0.01)
     kw = dict(nn_backend="pallas", max_iterations=30)
     ref = jax_icp(src, tgt, dtype=jnp.float32, **kw)
-    res = icp_register(src, tgt, device="cpu", **kw)
-    assert res.nn_resolution == ref.nn_resolution
-    assert (res.iterations, res.stop_reason) == (ref.iterations,
-                                                 ref.stop_reason)
-    assert _reg_err(res.transform, ref.transform, src) <= 1e-4
-    # The tile layout is undone on the registered cloud.
-    np.testing.assert_allclose(res.source_registered,
-                               apply_transform_np(res.transform, src),
-                               atol=1e-3)
+    for threads in sorted({1, one_torch_thread}):
+        torch.set_num_threads(threads)
+        try:
+            res = icp_register(src, tgt, device="cpu", **kw)
+        finally:
+            torch.set_num_threads(1)
+        assert res.nn_resolution == ref.nn_resolution
+        assert (res.iterations, res.stop_reason) == (
+            ref.iterations, ref.stop_reason), threads
+        assert _reg_err(res.transform, ref.transform, src) <= 1e-4
+        # The tile layout is undone on the registered cloud.
+        np.testing.assert_allclose(res.source_registered,
+                                   apply_transform_np(res.transform, src),
+                                   atol=1e-3)
 
 
 @pytest.mark.parametrize("offset", ["local", "utm"])
@@ -130,7 +134,8 @@ def test_loop_step_from_jax_carry():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(cell_capacity=16), "P16"),
+    # cell_capacity reaches only the hashgrid backend (the JAX rule).
+    (dict(nn_backend="hashgrid", cell_capacity=16), "P16"),
     (dict(nn_backend="hashgrid"), "P16"),
     # The JAX package's rule: plane mode needs normals, which only the
     # brute-force and pallas backends carry (checked before P16's raise).
@@ -142,6 +147,79 @@ def test_unported_options_raise(option, item):
     exc = NotImplementedError if item.startswith("P") else ValueError
     with pytest.raises(exc, match=item):
         icp_register(src, tgt, device="cpu", max_iterations=1, **option)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "auto"])
+def test_cell_capacity_ignored_off_hashgrid(backend):
+    """The session passes cell_capacity (default 10) on every run; off
+    the hashgrid backend it changes nothing, bit for bit."""
+    src, tgt, _ = make_registration_pair(n=2000, seed=5, noise_sigma=0.01)
+    kw = dict(nn_backend=backend, max_iterations=6, device="cpu")
+    a = icp_register(src, tgt, cell_capacity=10, **kw)
+    b = icp_register(src, tgt, **kw)
+    assert a.iterations == b.iterations and a.nn_resolution == b.nn_resolution
+    for f in ("transform", "history_rmse", "history_transform",
+              "source_registered"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+
+
+def _ms_pair():
+    return make_registration_pair(n=6000, seed=95, noise_sigma=0.01)[:2]
+
+
+_MS_KW = dict(nn_backend="pallas", max_iterations=10, coarse_max_points=1500,
+              return_registered=False)
+
+
+@pytest.mark.parametrize("option", [
+    dict(coarse_nn_backend="auto"), dict(coarse_nn_backend="bruteforce"),
+    dict(overlap_device_prep=True), dict(overlap_device_prep=False),
+])
+def test_multiscale_options_change_nothing(option):
+    """``coarse_nn_backend`` "auto" picks brute force at the coarse
+    level's size, so "bruteforce" is the same run; ``overlap_device_prep``
+    is the JAX package's TPU upload ordering and changes nothing here."""
+    src, tgt = _ms_pair()
+    a = icp_register_multiscale(src, tgt, device="cpu", **option, **_MS_KW)
+    b = icp_register_multiscale(src, tgt, device="cpu", **_MS_KW)
+    assert [(s, r.iterations) for s, r in a.levels] == [
+        (s, r.iterations) for s, r in b.levels]
+    for (_, x), (_, y) in zip(a.levels, b.levels):
+        np.testing.assert_array_equal(x.transform, y.transform)
+        np.testing.assert_array_equal(x.history_rmse, y.history_rmse)
+
+
+def test_coarse_pallas_matches_jax():
+    """``coarse_nn_backend="pallas"`` reaches the coarse level: its grid
+    matches the JAX package's choice, level by level."""
+    src, tgt = _ms_pair()
+    kw = dict(_MS_KW, coarse_nn_backend="pallas")
+    ref = jax_multiscale(src, tgt, dtype=jnp.float32, **kw)
+    res = icp_register_multiscale(src, tgt, device="cpu", **kw)
+    for (s, a), (t, b) in zip(res.levels, ref.levels):
+        assert (s, a.iterations, a.stop_reason, a.nn_resolution) == (
+            t, b.iterations, b.stop_reason, b.nn_resolution)
+    assert res.levels[0][1].nn_resolution is not None  # a grid, not brute
+    assert _reg_err(res.transform, ref.transform, src) <= 1e-4
+
+
+@pytest.mark.parametrize("backend,exc,item", [
+    ("hashgrid", NotImplementedError, "P16"),
+    ("cellblock", NotImplementedError, "P16"),
+    ("kdtree", ValueError, "coarse_nn_backend"),
+])
+def test_coarse_backend_raises_before_any_level(monkeypatch, backend, exc,
+                                                item):
+    from iterativeclosestpoint_tpu_torch.models import multiscale
+
+    def no_level(*a, **k):
+        raise AssertionError("a level ran before the option was checked")
+
+    monkeypatch.setattr(multiscale, "icp_register", no_level)
+    src, tgt = _ms_pair()
+    with pytest.raises(exc, match=item):
+        icp_register_multiscale(src, tgt, device="cpu",
+                                coarse_nn_backend=backend, **_MS_KW)
 
 
 def _volume_box():

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, a CUDA request without CUDA raises instead of running on the CPU,
-and ``chip_smoke.py`` refuses to run without a card. Each check runs in a
+package, a CUDA request without CUDA raises instead of running on the CPU
+(through the library and through ``icp-torch``), and ``chip_smoke.py``
+refuses to run without a card. Each check runs in a
 fresh interpreter, where nothing else has imported JAX yet."""
 
 import os
@@ -26,7 +27,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import iterativeclosestpoint_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    p.__path__, p.__name__ + '.')]\n"
-        "assert 'iterativeclosestpoint_tpu_torch.ops.normals' in names\n"
+        "expected = {'ops.normals', 'ops.downsample', 'io.las', 'cli',\n"
+        "    'utils.config', 'runtime.native', 'runtime.checkpoint',\n"
+        "    'runtime.metrics', 'runtime.viz', 'runtime.htmlviz',\n"
+        "    'runtime.session', 'runtime.profiling', 'runtime.smoke'}\n"
+        "missing = {e for e in expected if p.__name__ + '.' + e not in names}\n"
+        "assert not missing, missing\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -58,6 +64,36 @@ def test_cuda_request_without_cuda_raises(device):
     r = _run(code, CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
     assert "RAISED" in r.stdout and "is_available() is false" in r.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["run", "s.las", "t.las", "--max-iterations", "1"],
+    ["--device", "cuda", "smoke"],
+])
+def test_cli_without_cuda_exits_nonzero(tmp_path, argv):
+    """``icp-torch`` without ``--device cpu`` and without CUDA exits
+    non-zero with the reason; it does not run on the CPU instead."""
+    code = (
+        "import sys\n"
+        "from iterativeclosestpoint_tpu_torch.cli import main\n"
+        "from iterativeclosestpoint_tpu_torch.io.las import write_las\n"
+        "from iterativeclosestpoint_tpu_torch.utils.synth import "
+        "make_registration_pair\n"
+        "src, tgt, _ = make_registration_pair(n=200, seed=1)\n"
+        f"write_las({str(tmp_path / 's.las')!r}, src)\n"
+        f"write_las({str(tmp_path / 't.las')!r}, tgt)\n"
+        f"sys.exit(main({argv!r}))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "PYTHONPATH": str(ROOT)},
+    )
+    assert r.returncode != 0, r.stdout + r.stderr
+    assert "is_available() is false" in r.stdout
+    assert "starting ICP registration" not in r.stdout
+    assert "smoke[" not in r.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
