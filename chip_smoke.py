@@ -99,13 +99,45 @@ Phases, one or more lines each:
    pair's grids; (d) on a 250k pair without multiscale, 5 + 5 iterations
    resumed from the checkpoint equal 10 in one run, and a run in live
    segments of 5 streams the one-shot history, bit for bit; (e)
-   ``replay -k 3``, ``status`` and ``view`` to HTML; (f) ``graph``,
-   ``bench`` and ``run --parallel dp`` exit non-zero naming P14, P9, P15;
-8. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
-   the main paths (headline, volume, plane, plane_10m, product), error,
-   times, data-sheet bound and issue floor at its most launched shape,
-   and every measured shape under ``shapes`` with its launches per path;
-9. the last line: ``{"ok": true, "device": {...}}``.
+   ``replay -k 3``, ``status`` and ``view`` to HTML; (f) ``bench`` and
+   ``run --parallel dp`` exit non-zero naming P9, P15;
+8. the multi-scan pose graph: (a) ``tools/exp_ms3.py``'s configuration,
+   four x-windows (0.4 of the x extent at a step of 0.2, ~800k points
+   each, N(0, 0.01) noise from ``default_rng(0)``) of
+   ``make_cloud(2_000_000, seed=3, extent=200.0)``, through
+   ``register_scans(edges="auto", reuse_device=True, max_iterations=20,
+   tolerance=0.0, mode="gui")``: one warm-up, one timed run (wall,
+   launches; 3 edges, 3 scan uploads, 3 grids, 3 cropped uploads, no
+   scan disconnected, a finite residual), one synced run (each edge's
+   fine-loop ms/iteration, ``edge_stage``, ``grid_build`` and the GN's
+   iterations and ms); each edge's final pose held against cKDTree on a
+   seeded sample of 200,000 real rows (the edges slide on this periodic
+   terrain, leaving queries metres from the target, where one f32 ulp of
+   a distance passes 1e-6 m: each returned point must be a nearest
+   neighbour within 1e-9 m in f64, and each distance its winner's,
+   recomputed, bit for bit); every shape the timed run
+   launched that phase 3 did not hold is held against plain on the
+   targets' grids; (b) card against CPU on four ~20k strips of the same
+   density (crop margin 0, where the edges converge): same edges,
+   per-edge iterations and stop codes, poses within 1e-4 m; (c) the
+   5-pose graph with one corrupted edge (6 edges) solved on the card
+   with tukey: poses within 1e-6 of the truth and within 1e-9 of the
+   CPU's (f64); (d) ``icp-torch graph --edges auto`` on the four strips
+   as LAS with ``--poses``, ``--html`` and ``-o``: its poses equal
+   ``register_scans`` on the decoded clouds bit for bit, and ``graph
+   --parallel dp`` exits naming P15; (e) the test and reference
+   backends: ``icp_register`` with ``nn_backend="cellblock"`` and with
+   ``"hashgrid"`` (``cell_capacity=10``) on phase 6's 60k terrain, held
+   to the pallas backend's iteration count and stop code and 1e-4 m,
+   and each backend's NN exact against cKDTree at its final pose; every
+   K3 shape they launched that phase 3 did not hold is held against
+   plain;
+9. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
+   the main paths (headline, volume, plane, plane_10m, product, graph,
+   backends), error, times, data-sheet bound and issue floor at its most
+   launched shape, and every measured shape under ``shapes`` with its
+   launches per path;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without CUDA it exits with code 1 before anything else.
@@ -155,6 +187,13 @@ REPAIR_N = 250_000      # phase 5 cloud size
 CARD_CPU_N = 60_000     # phase 6 cloud size
 PRODUCT_N = 1_000_000   # phase 7 LAS pair (icp-torch synth)
 RESUME_N = 250_000      # phase 7 resume pair
+# phase 8: tools/exp_ms3.py's multi-scan job, and a 4-strip graph of the
+# same density (~50 points/m²) small enough for the CPU
+GRAPH_WORLD = dict(n=2_000_000, seed=3, extent=200.0)
+GRAPH_KW = dict(edges="auto", reuse_device=True, max_iterations=20,
+                tolerance=0.0, mode="gui")
+GRAPH_SMALL = dict(n=50_000, seed=3, extent=32.0)
+GRAPH_SAMPLE = 200_000  # phase 8a: real rows held against cKDTree per edge
 DEVICE = "cuda"
 
 
@@ -193,11 +232,15 @@ def cuda_ms(fn, reps=5, warmup=True):
     return float(np.median(times)), out
 
 
-def cdist_argmin(q, t, chunk=65536):
+def cdist_argmin(q, t, chunk=65536, q_chunk=32768):
     """The library yardstick for K3: ``torch.cdist`` in its explicit
     (non-matmul) mode and an argmin, over target chunks of ``chunk`` rows
-    (one call over a 1M-row target is refused as an invalid launch
-    configuration). The port never calls it."""
+    and query chunks of ``q_chunk`` rows (one call over a 1M-row target,
+    or 60,000 queries against 60,000 targets, is refused as an invalid
+    launch configuration). The port never calls it."""
+    if q.shape[0] > q_chunk:
+        return torch.cat([cdist_argmin(q[q0:q0 + q_chunk], t, chunk, q_chunk)
+                          for q0 in range(0, q.shape[0], q_chunk)])
     best = torch.full((q.shape[0],), float("inf"), device=q.device)
     arg = torch.zeros((q.shape[0],), dtype=torch.int64, device=q.device)
     for t0 in range(0, t.shape[0], chunk):
@@ -671,12 +714,18 @@ def _shape_key(name, shape):
     return shape[1:] if name == "colsweep_fused" else shape
 
 
-def _final_pose(tag, data, transform, prepared, sample=None):
+def _final_pose(tag, data, transform, prepared, sample=None,
+                by_winner=False):
     """Exactness at a final pose: the fine sweep's certified fraction over
     real rows, and the exact chain's distances (and, with normals, each
     returned normal against the target's normal at the winner, bit for
     bit) against cKDTree on the real rows, or on a seeded sample of
-    ``sample`` of them."""
+    ``sample`` of them. ``by_winner``: for queries far from the target,
+    where one f32 ulp of the distance exceeds 1e-6 m (the sliding edges
+    of the multi-scan job), each returned point's f64 distance from its
+    query must be cKDTree's (it is a nearest neighbour) within 1e-9 m, and
+    each returned f32 distance must be that point's, recomputed by
+    ``winner_dist``, bit for bit."""
     from iterativeclosestpoint_tpu_torch.models.icp import (
         _prep_fine_source,
         _rebase_transform,
@@ -729,11 +778,31 @@ def _final_pose(tag, data, transform, prepared, sample=None):
         note = (f"; normals equal normals[winner] on all {len(qh)} rows: "
                 f"{same}")
         check(same, f"{tag}: a returned normal is not its winner's")
+    if by_winner:
+        from iterativeclosestpoint_tpu_torch.ops.bruteforce import (
+            winner_dist,
+        )
+
+        matched = out[0][rows]
+        d_win = np.linalg.norm(matched.cpu().numpy().astype(np.float64)
+                               - qh, axis=1)
+        wgap = float(np.abs(d_win - d_ref).max())
+        recomputed = torch.equal(
+            out[1][rows], winner_dist(q[rows], matched,
+                                      torch.arange(rows.shape[0],
+                                                   device=dev)))
+        note += (f"; max cKDTree distance {d_ref.max():.3f} m; winners' "
+                 f"f64 distance - cKDTree {wgap:.3e} m; dist = winner_dist "
+                 f"bit for bit: {recomputed}")
+        check(wgap <= 1e-9, f"{tag}: a returned point is not a nearest "
+              f"neighbour: {wgap}")
+        check(recomputed, f"{tag}: a distance is not its winner's")
     print(f"[{tag}] final pose: certified {frac:.6f} of "
           f"{int(real.sum())} real queries at the fine level "
           f"({q.shape[0]} laid out); max |dist - cKDTree| {gap:.3e} m over "
           f"{len(qh)} rows{note}", flush=True)
-    check(gap <= 1e-6, f"{tag}: final-pose NN not exact: {gap}")
+    if not by_winner:
+        check(gap <= 1e-6, f"{tag}: final-pose NN not exact: {gap}")
 
 
 def _launch_checks(tag, by_shape, measured, launches):
@@ -1130,7 +1199,7 @@ def phase_product(measured, issue_rate):
     checkpoint and HTML, held against the library call on the decoded
     clouds and against cKDTree at its final pose; (d) resume and live
     segments on a 250k pair, bit for bit; (e) replay, status and view;
-    (f) the unported verbs exit non-zero with their item. Returns the
+    (f) the unported options exit non-zero with their item. Returns the
     launches by shape of run (c)."""
     import tempfile
     from pathlib import Path
@@ -1320,9 +1389,8 @@ def phase_product(measured, issue_rate):
         check(rgap <= 0.0005 + 1e-6, f"replay differs: {rgap}")
         check("runs: 1" in status, status)
 
-        # (f) the verbs that are not ported yet
-        for argv, item in ((("graph", src_las, tgt_las), "P14"),
-                           (("bench",), "P9"),
+        # (f) the verbs that are not ported yet (graph runs: phase 8)
+        for argv, item in ((("bench",), "P9"),
                            (("run", src_las, tgt_las, "--parallel", "dp"),
                             "P15")):
             rc, out = _cli(*argv, expect_ok=False)
@@ -1331,6 +1399,302 @@ def phase_product(measured, issue_rate):
             check(rc != 0 and f"ROADMAP {item}" in out,
                   f"{argv[0]} did not exit non-zero naming {item}")
     return by_shape
+
+
+def strip_scans(n, seed, extent, k=4):
+    """``tools/exp_ms3.py``'s scans: ``k`` x-windows of 0.4 of one world
+    cloud's x extent at a step of 0.2, each with N(0, 0.01) noise from
+    ``default_rng(0)``."""
+    from iterativeclosestpoint_tpu_torch.utils.synth import make_cloud
+
+    world = make_cloud(n, seed=seed, extent=extent)
+    x = world[:, 0]
+    lo, hi = float(x.min()), float(x.max())
+    ext = hi - lo
+    rng = np.random.default_rng(0)
+    scans = []
+    for s in range(k):
+        w_lo = lo + s * 0.2 * ext
+        sel = world[(x >= w_lo) & (x <= w_lo + 0.4 * ext)]
+        scans.append(sel + rng.normal(0, 0.01, sel.shape))
+    return scans
+
+
+def _pose_gap(Ta, Tb, pts):
+    """Max displacement (m) between two poses over ``pts``."""
+    Ta, Tb = np.asarray(Ta), np.asarray(Tb)
+    return float(np.linalg.norm((pts @ Ta[:3, :3].T + Ta[:3, 3])
+                                - (pts @ Tb[:3, :3].T + Tb[:3, 3]),
+                                axis=1).max())
+
+
+def _unheld(by_shape, measured):
+    return sorted((nm, sh) for nm, sh in by_shape
+                  if _shape_key(nm, sh) not in measured[nm])
+
+
+def phase_graph(measured, issue_rate):
+    """Phase 8, the multi-scan pose graph and the test and reference
+    backends; see the module docstring. Returns the launches by shape of
+    run (a) and of the backends' runs (e)."""
+    import tempfile
+    from pathlib import Path
+
+    from iterativeclosestpoint_tpu_torch import icp_register
+    from iterativeclosestpoint_tpu_torch.io.las import read_las, write_las
+    from iterativeclosestpoint_tpu_torch.models.icp import _rebase_transform
+    from iterativeclosestpoint_tpu_torch.models.posegraph import (
+        _overlap_crop,
+        detect_overlap_edges,
+        optimize_pose_graph,
+        register_scans,
+    )
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.cellblock import (
+        make_cellblock_nn,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.hashgrid import make_hashgrid_nn
+    from iterativeclosestpoint_tpu_torch.ops.se3 import apply_transform
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
+        make_pallas_nn_device,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        random_rigid_transform,
+    )
+    from scipy.spatial import cKDTree
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
+
+    # (a) the full-width job
+    scans = strip_scans(**GRAPH_WORLD)
+    edges = detect_overlap_edges(scans)
+    kw = dict(GRAPH_KW, device=DEVICE)
+    t0 = time.perf_counter()
+    register_scans(scans, **kw)  # warm-up
+    warm = time.perf_counter() - t0
+    stats = {}
+    sk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = register_scans(scans, stats=stats, **kw)
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    by_shape = dict(sk.LAUNCH_SHAPES)
+    n_src = [len(_overlap_crop(scans[j], scans[i].min(axis=0),
+                               scans[i].max(axis=0), 0.05))
+             for i, j in edges]
+    print(f"[8a graph] scans {[len(s) for s in scans]}, edges {edges}, "
+          f"cropped sources {n_src}: warm-up {warm:.4f} s, timed run "
+          f"{wall:.4f} s -> {sum(n_src) * GRAPH_KW['max_iterations'] / wall:.1f}"
+          f" edge-source points x iterations/s; stats {stats}; launches "
+          f"{launches}; GN {res.iterations} iterations, residual "
+          f"{res.residual_rmse:.3e}, converged {res.converged}",
+          flush=True)
+    for (i, j), er in zip(edges, res.edge_results):
+        print(f"[8a graph] edge {i}<-{j}: {er.iterations} iterations, "
+              f"{er.message!r}, rmse {er.rmse:.6f}, nn_resolution "
+              f"{er.nn_resolution}, pose vs identity (the truth) "
+              f"{_pose_gap(er.transform, np.eye(4), scans[j]):.4f} m (not "
+              "gated)", flush=True)
+    check(len(edges) == 3 and len(res.edge_results) == 3,
+          f"graph edges {edges}")
+    check(stats == {"scan_uploads": 3, "grids_built": 3,
+                    "cropped_source_uploads": 3}, f"graph stats {stats}")
+    check(not res.disconnected, f"disconnected scans {res.disconnected}")
+    check(np.isfinite(res.residual_rmse), "non-finite graph residual")
+    check(all(er.success and er.iterations == GRAPH_KW["max_iterations"]
+              for er in res.edge_results), "an edge stopped early")
+    with collect(sync=True) as col:
+        register_scans(scans, **kw)
+    st = col.stages
+    print(f"[8a graph] synced run: edge_stage {st['edge_stage'] * 1e3:.3f} "
+          f"ms (3 uploads), grid_build {st['grid_build'] * 1e3:.3f} ms (3 "
+          f"grids), pose_graph {st['pose_graph'] * 1e3:.3f} ms "
+          f"({res.iterations} GN iterations); fine loop ms/iteration per "
+          "edge " + ", ".join(
+              f"{st[f'edge{e}/loop'] * 1e3 / GRAPH_KW['max_iterations']:.4f}"
+              for e in range(len(edges))), flush=True)
+    for line in col.lines():
+        print(f"[8a graph] breakdown: {line}")
+
+    # Exactness at each edge's final pose, on the shared centering frame.
+    lo = np.min([s.min(axis=0) for s in scans], axis=0)
+    hi = np.max([s.max(axis=0) for s in scans], axis=0)
+    offset = (lo + hi) / 2.0
+    prepared = {}
+    for e, ((i, j), er) in enumerate(zip(edges, res.edge_results)):
+        tgt_local = (scans[i] - offset).astype(np.float32)
+        tgt_dev = torch.as_tensor(tgt_local, device=dev)
+        prepared[i] = (make_pallas_nn_device(tgt_local, target_dev=tgt_dev),
+                       tgt_local, tgt_dev)
+        src = _overlap_crop(scans[j], scans[i].min(axis=0),
+                            scans[i].max(axis=0), 0.05)
+        pdata = dict(offset=offset, tgt_local=tgt_local,
+                     src_local=(src - offset).astype(np.float32))
+        _final_pose(f"8a graph edge {i}<-{j}", pdata, er.transform,
+                    prepared[i][0], sample=GRAPH_SAMPLE, by_winner=True)
+    unheld = _unheld(by_shape, measured)
+    print(f"[8a graph] launched shapes phase 3 did not hold: {unheld}",
+          flush=True)
+    for i, (prep, tgt_local, tgt_dev) in prepared.items():
+        if not _unheld(by_shape, measured):
+            break
+        _hold_slab_grids(measured, f"8a graph target {i}", prep, tgt_local,
+                         tgt_dev, np.random.default_rng(8), issue_rate,
+                         full=False)
+    del prepared
+    _launch_checks("8a graph", by_shape, measured, launches)
+    check(launches["colsweep"] > 0, "K2 never launched on the graph path")
+
+    # (b) card against CPU on a small graph of the same density
+    small = strip_scans(**GRAPH_SMALL)
+    skw = dict(GRAPH_KW, crop_margin=0.0)
+    t0 = time.perf_counter()
+    card = register_scans(small, device=DEVICE, **skw)
+    t1 = time.perf_counter()
+    cpu = register_scans(small, device="cpu", **skw)
+    t2 = time.perf_counter()
+    per_edge = [[(er.iterations, er.stop_reason) for er in r.edge_results]
+                for r in (card, cpu)]
+    gap = max(_pose_gap(a, b, s) for a, b, s in zip(card.poses, cpu.poses,
+                                                   small))
+    print(f"[8b graph card vs cpu] scans {[len(s) for s in small]}, edges "
+          f"{detect_overlap_edges(small)}: card {per_edge[0]} in "
+          f"{t1 - t0:.3f} s, cpu {per_edge[1]} in {t2 - t1:.3f} s; edge "
+          f"rmse {[round(er.rmse, 6) for er in card.edge_results]}; GN "
+          f"{card.iterations} / {cpu.iterations} iterations; max pose "
+          f"registration error {gap:.3e} m", flush=True)
+    check(per_edge[0] == per_edge[1] and card.iterations == cpu.iterations,
+          "graph: card and cpu differ in edges, iterations or stop codes")
+    check(gap <= 1e-4, f"graph: card and cpu poses differ by {gap} m")
+
+    # (c) the pose-graph solve on the card: 5 poses, 6 edges, one corrupted
+    poses = [np.eye(4)] + [random_rigid_transform(seed=11 + s)
+                           for s in range(1, 5)]
+    g_edges = [(i, i + 1, np.linalg.inv(poses[i]) @ poses[i + 1])
+               for i in range(4)]
+    g_edges.append((0, 4, np.linalg.inv(poses[0]) @ poses[4]))
+    bad = np.linalg.inv(poses[1]) @ poses[3]
+    bad[:3, 3] += np.array([2.0, -1.5, 1.0])
+    g_edges.append((1, 3, bad))
+    gkw = dict(n_poses=5, robust="tukey", max_iterations=40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_card = optimize_pose_graph(g_edges, device=DEVICE, **gkw)
+    gn_ms = (time.perf_counter() - t0) * 1e3
+    g_cpu = optimize_pose_graph(g_edges, device="cpu", **gkw)
+    truth_err = max(float(np.abs(g_card.poses[s] - poses[s]).max())
+                    for s in range(5))
+    dev_gap = float(np.abs(g_card.poses - g_cpu.poses).max())
+    print(f"[8c gn] tukey on the card: {g_card.iterations} iterations in "
+          f"{gn_ms:.3f} ms, converged {g_card.converged}; max |pose - "
+          f"truth| {truth_err:.3e}; max |card - cpu| {dev_gap:.3e} (f64)",
+          flush=True)
+    check(truth_err < 1e-6, f"tukey GN on the card: {truth_err}")
+    check(dev_gap <= 1e-9 and g_card.iterations == g_cpu.iterations,
+          f"GN card vs cpu: {dev_gap}")
+
+    # (d) icp-torch graph on the full-width strips as LAS
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        paths = [d / f"strip{s}.las" for s in range(len(scans))]
+        t0 = time.perf_counter()
+        for p, s in zip(paths, scans):
+            write_las(p, s)
+        t1 = time.perf_counter()
+        argv = ("graph", *paths, "--edges", "auto", "--max-iterations",
+                GRAPH_KW["max_iterations"], "--tolerance", 0.0,
+                "--poses", d / "poses.json", "--html", d / "scene.html",
+                "-o", d / "merged.las")
+        _, out = _cli(*argv)
+        t2 = time.perf_counter()
+        doc = json.loads((d / "poses.json").read_text())
+        decoded = [read_las(p)[0] for p in paths]
+        lib = register_scans(decoded, edges=detect_overlap_edges(decoded),
+                             max_iterations=GRAPH_KW["max_iterations"],
+                             tolerance=0.0, device=DEVICE)
+        same = np.array_equal(np.asarray(doc["poses"]), lib.poses)
+        merged = read_las(d / "merged.las")[0]
+        print(f"[8d icp-torch graph] LAS written in {t1 - t0:.3f} s; "
+              f"graph call {t2 - t1:.3f} s; poses bit-equal to "
+              f"register_scans on the decoded clouds: {same}; merged LAS "
+              f"{len(merged)} points, scene HTML "
+              f"{(d / 'scene.html').stat().st_size} bytes", flush=True)
+        for line in out.splitlines():
+            print(f"[8d icp-torch graph] {line}")
+        check(same, "icp-torch graph's poses are not the library call's")
+        check(len(merged) == sum(len(x) for x in decoded),
+              "the merged LAS lost points")
+        rc, out = _cli("graph", *paths[:2], "--parallel", "dp",
+                       expect_ok=False)
+        print(f"[8d icp-torch graph] --parallel dp: exit {rc}, "
+              f"{out.strip()}", flush=True)
+        check(rc != 0 and "ROADMAP P15" in out,
+              "graph --parallel dp did not exit naming P15")
+
+    # (e) the test and reference backends on phase 6's 60k terrain
+    bdata = make_data(dict(n=CARD_CPU_N, seed=95, noise_sigma=0.01))
+    src, tgt = bdata["src"], bdata["tgt"]
+    bkw = dict(max_iterations=40, tolerance=0.0, return_registered=False,
+               device=DEVICE)
+    ref = icp_register(src, tgt, nn_backend="pallas", **bkw)
+    tgt_dev = torch.as_tensor(bdata["tgt_local"], device=dev)
+    tree = cKDTree(bdata["tgt_local"].astype(np.float64))
+    sk.reset_launches()
+    backends = {}
+    for be, extra in (("cellblock", {}), ("hashgrid",
+                                          {"cell_capacity": 10})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backends[be] = r = icp_register(src, tgt, nn_backend=be, **bkw,
+                                        **extra)
+        ms = (time.perf_counter() - t0) * 1e3
+        gapb = _pose_gap(r.transform, ref.transform, src)
+        print(f"[8e backends] {be}{extra or ''}: {r.iterations} iterations, "
+              f"{r.message!r} in {ms:.1f} ms, nn_resolution "
+              f"{r.nn_resolution}; pallas {ref.iterations}, "
+              f"{ref.message!r}; registration error against pallas "
+              f"{gapb:.3e} m", flush=True)
+        check((r.iterations, r.stop_reason) == (ref.iterations,
+                                                ref.stop_reason),
+              f"{be}: iterations or stop code differ from pallas")
+        check(gapb <= 1e-4, f"{be}: {gapb} m from pallas")
+    b_shape = dict(sk.LAUNCH_SHAPES)
+    b_launch = dict(sk.LAUNCHES)
+    for be, r in backends.items():
+        T_loc = torch.as_tensor(
+            _rebase_transform(r.transform, -bdata["offset"]),
+            dtype=torch.float32, device=dev)
+        q = apply_transform(T_loc, torch.as_tensor(bdata["src_local"],
+                                                   device=dev))
+        tgt_np = tgt - bdata["offset"]  # the f64 frame icp_register builds in
+        if be == "cellblock":
+            fn, state, _ = make_cellblock_nn(tgt_np, device=dev)
+        else:
+            fn, state = make_hashgrid_nn(tgt_np, capacity=10, device=dev)
+        _, dist = fn(q, tgt_dev, state)
+        d_ref, _ = tree.query(q.cpu().numpy().astype(np.float64),
+                              workers=-1)
+        gapd = float(np.abs(dist.cpu().numpy() - d_ref).max())
+        print(f"[8e backends] {be} at its final pose: max |dist - "
+              f"cKDTree| {gapd:.3e} m over {len(d_ref)} rows", flush=True)
+        check(gapd <= 1e-6, f"{be}: NN not exact at the final pose: {gapd}")
+    unheld = _unheld(b_shape, measured)
+    print(f"[8e backends] launches {b_launch}; launched shapes phase 3 did "
+          f"not hold: {unheld}", flush=True)
+    src_dev = torch.as_tensor(bdata["src_local"], device=dev)
+    for nm, (n_q, n_t) in unheld:
+        _hold_k3(measured, src_dev[:n_q].contiguous(),
+                 tgt_dev[:n_t].contiguous(), issue_rate, f"{tpu}:1103",
+                 full=False)
+    check(not _unheld(b_shape, measured), "a backend shape is unheld")
+    check(b_launch["brute_nn"] > 0, "K3 never launched by the backends")
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_shape, b_shape
 
 
 def main() -> int:
@@ -1371,6 +1735,8 @@ def main() -> int:
     stamp(6)
     paths["product"] = phase_product(measured, issue_rate)
     stamp(7)
+    paths["graph"], paths["backends"] = phase_graph(measured, issue_rate)
+    stamp(8)
 
     table = [
         ("colsweep_fused", "colsweep_fused.cu", 1165),

@@ -19,9 +19,12 @@ reference's product surface (SURVEY.md §2, C9-C16):
   status    — run-history dashboard (dashboardpage.cpp:150-173).
   settings  — config show/edit with validated ranges (settingspage.cpp).
   smoke     — the kernels' exact chains against brute force.
+  graph     — multi-scan joint registration: pairwise ICP edges (chain,
+              overlap-detected, loop closure) and a pose-graph solve;
+              merged LAS in scan 0's frame, pose JSON, scene viewer.
 
-Not ported yet, each exiting non-zero with its ROADMAP item: ``graph``
-(P14), ``run --parallel dp|partition`` and ``run --ingest`` (P15) and
+Not ported yet, each exiting non-zero with its ROADMAP item:
+``run``/``graph --parallel dp|partition`` and ``run --ingest`` (P15) and
 ``bench`` (P9: ``bench.py`` is the JAX package's benchmark).
 """
 
@@ -272,8 +275,115 @@ def cmd_view(args) -> int:
 
 
 def cmd_graph(args) -> int:
-    """Multi-scan joint registration: the pose graph is not ported yet."""
-    return _not_ported("graph (multi-scan pose graph)", "P14")
+    """Multi-scan joint registration: pairwise ICP edges and a pose-graph
+    solve (an extension: the reference registers one pair at a time)."""
+    from iterativeclosestpoint_tpu_torch.io.las import read_las, write_las
+    from iterativeclosestpoint_tpu_torch.models.posegraph import (
+        detect_overlap_edges,
+        register_scans,
+    )
+
+    if args.parallel != "none":
+        return _not_ported(f"graph --parallel {args.parallel}", "P15")
+    dev = _device_or_exit(args)
+    if dev is None:
+        return 1
+    scans = []
+    hdr0 = None
+    for p in args.scans:
+        pts, hdr = read_las(p, stride=args.stride)
+        if args.voxel:
+            from iterativeclosestpoint_tpu_torch.ops.downsample import (
+                downsample_voxel_stride,
+            )
+
+            pts = downsample_voxel_stride(pts, args.voxel)
+        hdr0 = hdr0 or hdr
+        scans.append(pts)
+        _print(f"loaded {p}: {len(pts)} points")
+    if len(scans) < 2:
+        _print("need at least two scans")
+        return 1
+
+    if args.edges == "auto":
+        edges = detect_overlap_edges(scans, min_overlap=args.min_overlap)
+        if not edges:
+            edges = [(i, i + 1) for i in range(len(scans) - 1)]
+        _print(f"overlap-detected edges: {edges}")
+    else:
+        edges = [(i, i + 1) for i in range(len(scans) - 1)]
+    if args.loop and len(scans) > 2 and (0, len(scans) - 1) not in edges:
+        edges.append((0, len(scans) - 1))  # loop closure: last onto first
+
+    kw = dict(max_iterations=args.max_iterations, tolerance=args.tolerance)
+    if args.estimator:
+        kw["estimator"] = args.estimator
+    if args.robust:
+        kw["robust"] = args.robust
+    if args.nn_backend:
+        kw["nn_backend"] = args.nn_backend
+    stats = {}
+    res = register_scans(scans, edges=edges,
+                         pose_graph_iterations=args.graph_iterations,
+                         multiscale=args.multiscale,
+                         graph_robust=args.graph_robust, stats=stats,
+                         device=dev, **kw)
+    if "scan_uploads" in stats:
+        _print(f"device residency: {stats['scan_uploads']} scan uploads, "
+               f"{stats.get('grids_built', 0)} NN grids for "
+               f"{len(edges)} edges")
+    for (i, j), er in zip(edges, res.edge_results):
+        flag = "" if er.success else "  ** FAILED: edge dropped **"
+        _print(f"edge {i}<-{j}: iters={er.iterations} rmse={er.rmse:.6f} "
+               f"({er.message}){flag}")
+    if res.disconnected:
+        _print(f"ERROR: scan(s) {res.disconnected} have no successful-edge "
+               f"path to scan 0; their poses are NOT estimated (identity); "
+               f"no usable joint registration")
+        return 1
+    if not np.isfinite(res.residual_rmse):
+        _print("ERROR: pose-graph optimization failed (non-finite residual: "
+               "mutually inconsistent edges); no usable joint registration")
+        return 1
+    _print(f"pose graph: {res.iterations} GN iterations, "
+           f"edge-residual RMS {res.residual_rmse:.3e}"
+           f"{' (converged)' if res.converged else ''}")
+    if args.poses:
+        Path(args.poses).write_text(json.dumps({
+            "poses": res.poses.tolist(),
+            "iterations": res.iterations,
+            "residual_rmse": res.residual_rmse,
+            "converged": bool(res.converged),
+            "edges": [
+                {"target": i, "source": j, "rmse": float(er.rmse),
+                 "iterations": int(er.iterations), "message": er.message}
+                for (i, j), er in zip(edges, res.edge_results)
+            ],
+        }, indent=1))
+        _print(f"poses written to {args.poses}")
+    if args.output:
+        merged = np.concatenate([
+            s @ T[:3, :3].T + T[:3, 3]
+            for s, T in zip(scans, np.asarray(res.poses))
+        ])
+        # Scan 0's georeference, as ``run`` keeps the target's.
+        write_las(args.output, merged, scale=hdr0.scale, offset=hdr0.offset)
+        _print(f"merged cloud ({len(merged)} pts, scan-0 frame) written "
+               f"to {args.output}")
+    if args.html:
+        from iterativeclosestpoint_tpu_torch.runtime.htmlviz import (
+            export_scene_html,
+        )
+
+        export_scene_html(
+            args.html,
+            [s @ T[:3, :3].T + T[:3, 3]
+             for s, T in zip(scans, np.asarray(res.poses))],
+            names=[Path(p).name for p in args.scans],
+            title=f"{len(scans)} scans, joint registration (scan-0 frame)",
+        )
+        _print(f"interactive scene viewer written to {args.html}")
+    return 0 if res.iterations > 0 else 1
 
 
 def cmd_status(args) -> int:
@@ -461,8 +571,43 @@ def build_parser() -> argparse.ArgumentParser:
     v.set_defaults(fn=cmd_view)
 
     g = sub.add_parser("graph", help="multi-scan joint registration "
-                                     "(not ported yet: ROADMAP P14)")
-    g.add_argument("args", nargs=argparse.REMAINDER)
+                                     "(pairwise ICP edges + pose graph)")
+    g.add_argument("scans", nargs="+", help="two or more LAS files, in "
+                                            "chain order")
+    g.add_argument("-o", "--output", help="merged LAS (scan-0 frame)")
+    g.add_argument("--poses", help="per-scan pose JSON output")
+    g.add_argument("--edges", choices=["chain", "auto"], default="chain",
+                   help="edge selection: sequential chain or "
+                        "occupancy-overlap detection")
+    g.add_argument("--min-overlap", dest="min_overlap", type=float,
+                   default=0.25,
+                   help="minimum occupancy-overlap fraction for --edges auto")
+    g.add_argument("--multiscale", action="store_true",
+                   help="coarse-to-fine pipeline per edge (large scans)")
+    g.add_argument("--parallel", choices=["none", "dp", "partition"],
+                   default="none",
+                   help="multi-device edge ICP: not ported yet "
+                        "(ROADMAP P15); only 'none' runs")
+    g.add_argument("--graph-robust", dest="graph_robust",
+                   choices=["none", "huber", "tukey"], default="none",
+                   help="IRLS edge weighting in the pose-graph solve "
+                        "(tukey rejects gross-outlier edges outright)")
+    g.add_argument("--loop", action="store_true",
+                   help="add a loop-closure edge (last scan onto first)")
+    g.add_argument("--stride", type=int, default=1)
+    g.add_argument("--voxel", type=float, default=0.0)
+    g.add_argument("--html", help="interactive scene viewer of the "
+                                  "optimized scans (standalone HTML)")
+    g.add_argument("--max-iterations", type=int, dest="max_iterations",
+                   default=50)
+    g.add_argument("--tolerance", type=float, default=1e-6)
+    g.add_argument("--graph-iterations", type=int, dest="graph_iterations",
+                   default=20)
+    g.add_argument("--estimator", choices=["point", "plane"])
+    g.add_argument("--robust", choices=["none", "huber", "tukey"])
+    g.add_argument("--nn-backend", dest="nn_backend",
+                   choices=["auto", "bruteforce", "hashgrid", "cellblock",
+                            "pallas"])
     g.set_defaults(fn=cmd_graph)
 
     st = sub.add_parser("status", help="run-history dashboard")

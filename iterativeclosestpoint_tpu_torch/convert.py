@@ -7,7 +7,9 @@ place of ``col_start`` and may have per-axis cells), the fine query
 layout (``rows`` and ``weight``, plain arrays) and the convergence carry (``T_cum``, ``prev_error``,
 ``no_improve``). These helpers move the grid and the carry between numpy
 (what the JAX package's arrays convert to) and the port's tensors, so the
-same grid can feed both sweeps.
+same grid can feed both sweeps. The test and reference backends' grids
+(``CellGrid``, ``HashGrid``) convert field by field with their dtypes
+kept (f32 or f64 coordinates, int32 offsets and indices).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from iterativeclosestpoint_tpu_torch.ops.cellblock import CellGrid
+from iterativeclosestpoint_tpu_torch.ops.hashgrid import HashGrid
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     PallasGrid,
     ZPallasGrid,
@@ -42,6 +46,20 @@ def zgrid_from_numpy(d: dict, device) -> ZPallasGrid:
     """A z-column grid from its fields as numpy arrays (e.g. a JAX
     ``ZPallasGrid`` converted field by field)."""
     return _from_numpy(ZPallasGrid, d, device)
+
+
+def cellgrid_from_numpy(d: dict, device) -> CellGrid:
+    """A cell-blocked grid from its fields as numpy arrays (e.g. a JAX
+    ``CellGrid`` converted field by field), dtypes kept."""
+    return CellGrid(**{k: torch.as_tensor(np.array(d[k]), device=device)
+                       for k in CellGrid._fields})
+
+
+def hashgrid_from_numpy(d: dict, device) -> HashGrid:
+    """A voxel-hash grid from its fields as numpy arrays (e.g. a JAX
+    ``HashGrid`` converted field by field), dtypes kept."""
+    return HashGrid(**{k: torch.as_tensor(np.array(d[k]), device=device)
+                       for k in HashGrid._fields})
 
 
 def grid_to_numpy(grid: "PallasGrid | ZPallasGrid") -> dict:

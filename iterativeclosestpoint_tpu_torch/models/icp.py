@@ -36,8 +36,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
-from iterativeclosestpoint_tpu_torch.ops.cellblock import auto_resolution_data
+from iterativeclosestpoint_tpu_torch.ops.cellblock import (
+    auto_resolution_data,
+    make_cellblock_nn,
+    morton_order,
+)
+from iterativeclosestpoint_tpu_torch.ops.hashgrid import make_hashgrid_nn
 from iterativeclosestpoint_tpu_torch.ops.kabsch import kabsch_masked
 from iterativeclosestpoint_tpu_torch.ops.normals import (
     estimate_normals_cellpca,
@@ -46,7 +50,7 @@ from iterativeclosestpoint_tpu_torch.ops.se3 import apply_transform, se3_exp
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     grouped_tile_order_device,
 )
-from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_brute
+from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_exact
 from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
 from iterativeclosestpoint_tpu_torch.runtime.timing import stage
 from iterativeclosestpoint_tpu_torch.utils import hostmath
@@ -308,33 +312,31 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
 
 def _brute_adapter(query, target, nn_state):
     """Brute-force nn_fn: f32 goes through K3 (its plain version for CPU
-    tensors), f64 through the plain ``nn_bruteforce`` (the oracle-parity
-    path)."""
+    tensors), f64 through the plain ``nn_bruteforce`` (``nn_exact``)."""
     del nn_state
-    brute = nn_brute if query.dtype == torch.float32 else nn_bruteforce
-    idx, dist = brute(query, target)
+    idx, dist = nn_exact(query, target)
     return target[idx], dist
 
 
 def _brute_plane_adapter(query, target, nn_state):
     """Brute-force nn_fn of the plane estimator (``nn_state`` = the
     target's normals): the normal is gathered at the winner's index."""
-    brute = nn_brute if query.dtype == torch.float32 else nn_bruteforce
-    idx, dist = brute(query, target)
+    idx, dist = nn_exact(query, target)
     return target[idx], dist, nn_state[idx]
 
 
 def _default_nn(nn_backend: str, source_local: np.ndarray,
-                target_local: np.ndarray, grid_resolution, *,
-                estimator: str = "point", source_dev, target_dev):
+                target_local: np.ndarray, grid_resolution, cell_capacity=None,
+                *, estimator: str = "point", source_dev, target_dev):
     """Pick the NN kernel; returns (nn_fn, nn_state, rows | None,
     weight | None, resolution | None).
 
     'auto': brute force while the all-pairs work is small (n·m ≤ 2³¹), the
     slab sweep beyond. The pallas backend lays the source out in
-    x-group-aligned tiles (``rows``, with weight 0 on padding rows). The
-    plane estimator needs normals: host cell PCA for brute force, the
-    device build packed into the grids for pallas.
+    x-group-aligned tiles (``rows``, with weight 0 on padding rows); the
+    cellblock backend in Morton order (``rows``, no padding). The plane
+    estimator needs normals: host cell PCA for brute force, the device
+    build packed into the grids for pallas.
     """
     m = len(target_local)
     n = len(source_local)
@@ -343,9 +345,6 @@ def _default_nn(nn_backend: str, source_local: np.ndarray,
     if estimator == "plane" and nn_backend not in ("bruteforce", "pallas"):
         raise ValueError(
             "estimator='plane' supports nn_backend 'bruteforce' or 'pallas'")
-    if nn_backend in ("cellblock", "hashgrid"):
-        raise NotImplementedError(
-            f"nn_backend={nn_backend!r} is not ported yet (ROADMAP P16)")
     if nn_backend == "bruteforce":
         if estimator == "plane":
             nrm = estimate_normals_cellpca(
@@ -355,6 +354,19 @@ def _default_nn(nn_backend: str, source_local: np.ndarray,
                                     device=target_dev.device),
                     None, None, None)
         return _brute_adapter, (), None, None, None
+    if nn_backend == "cellblock":
+        nn_fn, grid, resolution = make_cellblock_nn(
+            target_local, resolution=grid_resolution or None,
+            dtype=target_dev.dtype, device=target_dev.device)
+        rows = torch.as_tensor(morton_order(source_local, resolution),
+                               device=target_dev.device)
+        return nn_fn, grid, rows, None, resolution
+    if nn_backend == "hashgrid":
+        resolution = grid_resolution or 64
+        nn_fn, grid = make_hashgrid_nn(
+            target_local, resolution=resolution, capacity=cell_capacity,
+            dtype=target_dev.dtype, device=target_dev.device)
+        return nn_fn, grid, None, None, resolution
     if nn_backend == "pallas":
         nn_fn, state, resolution = make_pallas_nn_device(
             target_local, resolution=grid_resolution, target_dev=target_dev,
@@ -588,9 +600,11 @@ def icp_register(
     ``device``: None means the card (raises without CUDA); "cpu" runs the
     plain PyTorch versions of the kernels.
 
-    ``cell_capacity`` sizes the hashgrid backend's cells (not ported yet,
-    ROADMAP P16: that backend raises); every other backend ignores it, as
-    in the JAX package.
+    ``nn_backend``: "auto", "bruteforce", "pallas" (the slab sweep), or
+    the test and reference backends "cellblock" and "hashgrid" (point
+    mode only). ``cell_capacity`` sizes the hashgrid backend's cells
+    (None: from the occupancy histogram); every other backend ignores
+    it, as in the JAX package.
 
     ``estimator``: "point" (the reference's Kabsch) or "plane"
     (point-to-plane on cell-PCA target normals; nn_backend "bruteforce"
@@ -698,7 +712,7 @@ def icp_register(
                 tgt_np = target - offset
         with stage("nn_build") as done:
             nn_fn, nn_state, rows, row_weight, nn_res = _default_nn(
-                nn_backend, src_np, tgt_np, grid_resolution,
+                nn_backend, src_np, tgt_np, grid_resolution, cell_capacity,
                 estimator=estimator, source_dev=src_local,
                 target_dev=tgt_local,
             )

@@ -141,7 +141,8 @@ def icp_register_multiscale(
     level with stride ceil(N / coarse_max_points) (plus sqrt-spaced levels
     for very large clouds) then full resolution. ``device``: None means the
     card; "cpu" runs the plain versions. ``coarse_nn_backend`` ("auto",
-    "bruteforce" or "pallas") is the coarse levels' NN backend.
+    "bruteforce", "pallas", "cellblock" or "hashgrid") is the coarse
+    levels' NN backend.
     ``overlap_device_prep`` is the JAX package's TPU upload ordering; it is
     accepted and changes nothing here (see the module docstring).
     ``fine_kwargs`` go to the final full-resolution ``icp_register``
@@ -154,11 +155,8 @@ def icp_register_multiscale(
     if fine_path != "auto":
         raise ValueError(f"unknown fine_path {fine_path!r}")
     # Checked before any level runs, not by the first coarse level.
-    if coarse_nn_backend in ("cellblock", "hashgrid"):
-        raise NotImplementedError(
-            f"coarse_nn_backend={coarse_nn_backend!r} is not ported yet "
-            "(ROADMAP P16)")
-    if coarse_nn_backend not in ("auto", "bruteforce", "pallas"):
+    if coarse_nn_backend not in ("auto", "bruteforce", "pallas",
+                                 "cellblock", "hashgrid"):
         raise ValueError(f"unknown coarse_nn_backend {coarse_nn_backend!r}")
     del overlap_device_prep  # the TPU upload ordering; see the docstring
     dev = resolve_device(device)

@@ -19,15 +19,16 @@ import torch
 
 
 def sq_dist(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(n, m) squared distances ``((dx*dx + dy*dy) + dz*dz)``, each
-    operation its own tensor op so every step rounds on its own (the CUDA
-    kernels use the same order with ``__fsub_rn``/``__fmul_rn``/``__fadd_rn``).
-    In place, on two (n, m) buffers."""
-    d2 = q[:, 0:1] - t[None, :, 0]
+    """Squared distances ``((dx*dx + dy*dy) + dz*dz)`` of queries (..., n,
+    3) against targets (..., m, 3) → (..., n, m), each operation its own
+    tensor op so every step rounds on its own (the CUDA kernels use the
+    same order with ``__fsub_rn``/``__fmul_rn``/``__fadd_rn``). In place,
+    on two (..., n, m) buffers."""
+    d2 = q[..., :, None, 0] - t[..., None, :, 0]
     d2.mul_(d2)
-    d = q[:, 1:2] - t[None, :, 1]
+    d = q[..., :, None, 1] - t[..., None, :, 1]
     d2.add_(d.mul_(d))
-    torch.sub(q[:, 2:3], t[None, :, 2], out=d)
+    torch.sub(q[..., :, None, 2], t[..., None, :, 2], out=d)
     return d2.add_(d.mul_(d))
 
 

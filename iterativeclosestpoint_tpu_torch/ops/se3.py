@@ -13,9 +13,30 @@ from __future__ import annotations
 import torch
 
 
+def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble a (4,4) homogeneous transform from (3,3) R and (3,) t.
+
+    Built out of place (no writes into an identity), so ``torch.func``
+    can differentiate it under ``vmap``."""
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
+    return torch.cat([torch.cat([R, t.to(R.dtype)[:, None]], dim=1), bottom])
+
+
+def compose(T_new: torch.Tensor, T_old: torch.Tensor) -> torch.Tensor:
+    """Accumulate: T_new @ T_old (apply T_old first, then T_new), the
+    reference engine's ``T_cumulative = T * T_cumulative``."""
+    return T_new @ T_old
+
+
 def apply_transform(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply a (4,4) rigid transform to (..., 3) points: p' = R p + t."""
     return points @ T[:3, :3].T + T[:3, 3]
+
+
+def invert_transform(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a rigid transform: [Rᵀ, -Rᵀt]."""
+    Rt = T[:3, :3].T
+    return make_transform(Rt, -(Rt @ T[:3, 3]))
 
 
 def _skew(w: torch.Tensor) -> torch.Tensor:
@@ -55,10 +76,43 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     C = torch.where(small, 1.0 / 6.0 - t2 / 120.0,
                     (theta - torch.sin(theta)) / (t2s * theta))
     V = torch.eye(3, dtype=xi.dtype, device=xi.device) + B * W + C * (W @ W)
-    T = torch.eye(4, dtype=xi.dtype, device=xi.device)
-    T[:3, :3] = so3_exp(w)
-    T[:3, 3] = V @ v
-    return T
+    return make_transform(so3_exp(w), V @ v)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """(3,3) rotation → (3,) axis-angle via atan2 (smooth at identity).
+
+    Valid for θ well below π (pose-graph edges are small relative
+    motions). Both branches are evaluated on safe inputs (the double
+    ``where``), so forward-mode derivatives at θ = 0 stay finite."""
+    s_vec = 0.5 * torch.stack(
+        [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    s2 = (s_vec * s_vec).sum()  # sin²θ
+    c = torch.clip((torch.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    small = s2 < 1e-14
+    sin_safe = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    theta = torch.atan2(sin_safe, c)
+    # θ/sinθ: a series in sin²θ near 0.
+    factor = torch.where(small, 1.0 + s2 / 6.0, theta / sin_safe)
+    return factor * s_vec
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(4,4) transform → (6,) twist [v, w] (differentiable near identity)."""
+    w = so3_log(T[:3, :3])
+    t2 = (w * w).sum()
+    small = t2 < 1e-14
+    t2s = torch.where(small, torch.ones_like(t2), t2)
+    theta = torch.sqrt(t2s)
+    W = _skew(w)
+    # V⁻¹ = I - W/2 + coef·W², coef = 1/θ² − (1+cosθ)/(2θ sinθ).
+    sin_safe = torch.where(small, torch.ones_like(t2), torch.sin(theta))
+    coef = torch.where(
+        small, 1.0 / 12.0 + t2 / 720.0,
+        1.0 / t2s - (1.0 + torch.cos(theta)) / (2.0 * theta * sin_safe))
+    Vinv = torch.eye(3, dtype=T.dtype, device=T.device) - 0.5 * W \
+        + coef * (W @ W)
+    return torch.cat([Vinv @ T[:3, 3], w])
 
 
 def registration_error(T_a, T_b, points) -> torch.Tensor:

@@ -296,3 +296,12 @@ def nn_brute(query, target):
     # version's initial winner.
     idx = torch.where(keys < 0, 0, keys & 0xFFFFFFFF)
     return idx, winner_dist(query, target, idx)
+
+
+def nn_exact(query, target):
+    """Exact 1-NN in the query's dtype: f32 through K3 (``nn_brute``; its
+    plain version for CPU tensors), f64 through the plain
+    ``nn_bruteforce`` (the oracle-parity path, which K3 does not cover)."""
+    if query.dtype == torch.float32:
+        return nn_brute(query.contiguous(), target.contiguous())
+    return nn_bruteforce(query, target)

@@ -135,18 +135,29 @@ def test_loop_step_from_jax_carry():
 
 @pytest.mark.parametrize("option,item", [
     # cell_capacity reaches only the hashgrid backend (the JAX rule).
-    (dict(nn_backend="hashgrid", cell_capacity=16), "P16"),
-    (dict(nn_backend="hashgrid"), "P16"),
+    (dict(nn_backend="hashgrid", cell_capacity=16), "runs"),
+    (dict(nn_backend="hashgrid"), "runs"),
     # The JAX package's rule: plane mode needs normals, which only the
-    # brute-force and pallas backends carry (checked before P16's raise).
+    # brute-force and pallas backends carry.
     (dict(estimator="plane", nn_backend="cellblock"), "plane"),
-    (dict(nn_backend="cellblock"), "P16"),
+    (dict(nn_backend="cellblock"), "runs"),
 ])
 def test_unported_options_raise(option, item):
-    src, tgt, _ = make_registration_pair(n=300, seed=1)
-    exc = NotImplementedError if item.startswith("P") else ValueError
-    with pytest.raises(exc, match=item):
-        icp_register(src, tgt, device="cpu", max_iterations=1, **option)
+    """The test and reference backends run (f32, point mode) and follow
+    the JAX package's trajectory: same iterations, stop code and grid
+    resolution, transforms within 1e-4 m. Plane mode with them raises."""
+    src, tgt, _ = make_registration_pair(n=300, seed=1, noise_sigma=0.01)
+    if item == "plane":
+        with pytest.raises(ValueError, match=item):
+            icp_register(src, tgt, device="cpu", max_iterations=1, **option)
+        return
+    res = icp_register(src, tgt, device="cpu", **option)
+    ref = jax_icp(src, tgt, dtype=jnp.float32, **option)
+    assert (res.iterations, res.stop_reason, res.nn_resolution) == (
+        ref.iterations, ref.stop_reason, ref.nn_resolution)
+    assert _reg_err(res.transform, ref.transform, src) <= 1e-4
+    np.testing.assert_allclose(res.source_registered,
+                               ref.source_registered, atol=1e-4)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "auto"])
@@ -204,19 +215,33 @@ def test_coarse_pallas_matches_jax():
 
 
 @pytest.mark.parametrize("backend,exc,item", [
-    ("hashgrid", NotImplementedError, "P16"),
-    ("cellblock", NotImplementedError, "P16"),
+    ("hashgrid", None, None),
+    ("cellblock", None, None),
     ("kdtree", ValueError, "coarse_nn_backend"),
 ])
 def test_coarse_backend_raises_before_any_level(monkeypatch, backend, exc,
                                                 item):
+    """An unknown coarse backend raises before any level runs; the test
+    and reference backends run the coarse level as the JAX package does
+    (same grid resolution, iterations and stop codes level by level)."""
     from iterativeclosestpoint_tpu_torch.models import multiscale
+
+    src, tgt = _ms_pair()
+    if exc is None:
+        kw = dict(_MS_KW, coarse_nn_backend=backend, max_iterations=3)
+        res = icp_register_multiscale(src, tgt, device="cpu", **kw)
+        ref = jax_multiscale(src, tgt, dtype=jnp.float32, **kw)
+        assert res.levels[0][1].nn_resolution is not None
+        for (s, a), (t, b) in zip(res.levels, ref.levels):
+            assert (s, a.iterations, a.stop_reason, a.nn_resolution) == (
+                t, b.iterations, b.stop_reason, b.nn_resolution)
+        assert _reg_err(res.transform, ref.transform, src) <= 1e-4
+        return
 
     def no_level(*a, **k):
         raise AssertionError("a level ran before the option was checked")
 
     monkeypatch.setattr(multiscale, "icp_register", no_level)
-    src, tgt = _ms_pair()
     with pytest.raises(exc, match=item):
         icp_register_multiscale(src, tgt, device="cpu",
                                 coarse_nn_backend=backend, **_MS_KW)

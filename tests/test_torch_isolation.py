@@ -30,7 +30,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "expected = {'ops.normals', 'ops.downsample', 'io.las', 'cli',\n"
         "    'utils.config', 'runtime.native', 'runtime.checkpoint',\n"
         "    'runtime.metrics', 'runtime.viz', 'runtime.htmlviz',\n"
-        "    'runtime.session', 'runtime.profiling', 'runtime.smoke'}\n"
+        "    'runtime.session', 'runtime.profiling', 'runtime.smoke',\n"
+        "    'models.posegraph', 'ops.hashgrid', 'ops.cellblock'}\n"
         "missing = {e for e in expected if p.__name__ + '.' + e not in names}\n"
         "assert not missing, missing\n"
         "for name in names:\n"

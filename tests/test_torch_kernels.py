@@ -312,3 +312,57 @@ def test_exact_chain_with_normals_on_card_matches_cpu(card):
     d0, idx = cKDTree(tgt).query(m_p.numpy())
     assert not d0.any()
     assert torch.equal(nrm.cpu()[torch.as_tensor(idx)], n_p)
+
+
+@pytest.mark.parametrize("backend", ["cellblock", "hashgrid"])
+def test_grid_backends_on_card_match_cpu(card, backend):
+    """The test and reference backends on the card: near queries and far
+    outliers (their brute repairs launch K3) give the CPU's winners and
+    distances bit for bit, and the exact ones."""
+    from iterativeclosestpoint_tpu_torch.ops import cellblock, hashgrid
+
+    tgt = make_cloud(30_000, seed=3, extent=50.0)
+    rng = np.random.default_rng(9)
+    q = np.vstack([tgt[rng.choice(30_000, 6000)]
+                   + rng.normal(0, 0.05, (6000, 3)),
+                   rng.uniform(-200, 200, (300, 3))]).astype(np.float32)
+    q = q[cellblock.morton_order(q, 32)]
+    out = []
+    for dev in (card, torch.device("cpu")):
+        if backend == "cellblock":
+            fn, state, _ = cellblock.make_cellblock_nn(tgt, 32, device=dev)
+        else:
+            fn, state = hashgrid.make_hashgrid_nn(tgt, 32, capacity=8,
+                                                  device=dev)
+        before = sk.LAUNCHES["brute_nn"]
+        t_dev = torch.as_tensor(tgt.astype(np.float32), device=dev)
+        m, d = fn(torch.as_tensor(q, device=dev), t_dev, state)
+        out.append((m.cpu(), d.cpu(), sk.LAUNCHES["brute_nn"] - before))
+    (m_k, d_k, k3), (m_p, d_p, _) = out
+    assert k3 > 0
+    assert torch.equal(m_k, m_p) and torch.equal(d_k, d_p)
+    d_ref, _ = cKDTree(tgt.astype(np.float32)).query(q)
+    np.testing.assert_allclose(d_k.numpy(), d_ref, atol=1e-6)
+
+
+def test_pose_graph_on_card_matches_cpu(card):
+    """The f64 Gauss-Newton on the card: the CPU's poses within 1e-12, and
+    two card solves bit-equal (the block sums are a dense product)."""
+    from iterativeclosestpoint_tpu_torch.models.posegraph import (
+        optimize_pose_graph,
+    )
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        random_rigid_transform,
+    )
+
+    poses = [np.eye(4)] + [random_rigid_transform(seed=20 + s)
+                           for s in range(1, 6)]
+    edges = [(i, j, np.linalg.inv(poses[i]) @ poses[j])
+             for i in range(6) for j in range(i + 1, 6) if j - i <= 2]
+    kw = dict(n_poses=6, robust="huber", max_iterations=10)
+    a = optimize_pose_graph(edges, device=card, **kw)
+    b = optimize_pose_graph(edges, device=card, **kw)
+    c = optimize_pose_graph(edges, device="cpu", **kw)
+    np.testing.assert_array_equal(a.poses, b.poses)
+    np.testing.assert_allclose(a.poses, c.poses, atol=1e-12)
+    assert a.iterations == c.iterations

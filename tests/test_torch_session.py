@@ -213,10 +213,12 @@ def test_run_async_and_errors(tmp_path):
         RegistrationSession(device="cpu").run()
 
 
-def test_grid_resolution_and_cell_capacity_reach_engine(tmp_path):
+def test_grid_resolution_and_cell_capacity_reach_engine(tmp_path,
+                                                         monkeypatch):
     """A forced grid_resolution builds that grid (nn_resolution and the
     log line); cell_capacity reaches the engine, which uses it only for
-    hashgrid (ROADMAP P16) and ignores it elsewhere, bit for bit."""
+    hashgrid (it sizes that grid's cells) and ignores it elsewhere, bit
+    for bit."""
     sp, tp = _pair_files(tmp_path)
     sess, _ = _sessions(sp, tp)
     lines = []
@@ -235,9 +237,25 @@ def test_grid_resolution_and_cell_capacity_reach_engine(tmp_path):
     np.testing.assert_array_equal(runs[0].transform, runs[1].transform)
     np.testing.assert_array_equal(runs[0].history_rmse,
                                   runs[1].history_rmse)
-    with pytest.raises(NotImplementedError, match="P16"):
-        sess.run(config=ICPConfig(max_iterations=3, nn_backend="hashgrid",
-                                  cell_capacity=64))
+    from iterativeclosestpoint_tpu_torch.ops import hashgrid
+
+    built = []
+    real_build = hashgrid.build_hashgrid
+
+    def spy(*a, **k):
+        grid, cap = real_build(*a, **k)
+        built.append((cap, grid.overflow_pts.shape[0]))
+        return grid, cap
+
+    monkeypatch.setattr(hashgrid, "build_hashgrid", spy)
+    hg = [_sessions(sp, tp)[0].run(config=ICPConfig(
+              max_iterations=3, nn_backend="hashgrid", grid_resolution=8,
+              cell_capacity=cap)) for cap in (5, 100)]
+    assert [b[0] for b in built] == [5, 100]
+    assert built[0][1] > built[1][1]  # a smaller capacity overflows more
+    assert hg[0].nn_resolution == hg[1].nn_resolution == 8
+    # The grid changes, the exact NN and so the trajectory do not.
+    np.testing.assert_array_equal(hg[0].transform, hg[1].transform)
 
 
 def test_cli_end_to_end(tmp_path, capsys, monkeypatch):
@@ -287,7 +305,7 @@ def test_cli_end_to_end(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["graph", "a.las", "b.las", "--loop"], "P14"),
+    (["graph", "a.las", "b.las", "--loop", "--parallel", "dp"], "P15"),
     (["bench"], "P9"),
     (["run", "s.las", "t.las", "--parallel", "dp"], "P15"),
     (["run", "s.las", "t.las", "--parallel", "partition"], "P15"),
