@@ -99,8 +99,8 @@ Phases, one or more lines each:
    pair's grids; (d) on a 250k pair without multiscale, 5 + 5 iterations
    resumed from the checkpoint equal 10 in one run, and a run in live
    segments of 5 streams the one-shot history, bit for bit; (e)
-   ``replay -k 3``, ``status`` and ``view`` to HTML; (f) ``bench`` and
-   ``run --parallel dp`` exit non-zero naming P9, P15;
+   ``replay -k 3``, ``status`` and ``view`` to HTML; (f) ``bench`` exits
+   non-zero naming P9 (the ``--parallel`` runs are phase 9e);
 8. the multi-scan pose graph: (a) ``tools/exp_ms3.py``'s configuration,
    four x-windows (0.4 of the x extent at a step of 0.2, ~800k points
    each, N(0, 0.01) noise from ``default_rng(0)``) of
@@ -124,20 +124,64 @@ Phases, one or more lines each:
    with tukey: poses within 1e-6 of the truth and within 1e-9 of the
    CPU's (f64); (d) ``icp-torch graph --edges auto`` on the four strips
    as LAS with ``--poses``, ``--html`` and ``-o``: its poses equal
-   ``register_scans`` on the decoded clouds bit for bit, and ``graph
-   --parallel dp`` exits naming P15; (e) the test and reference
+   ``register_scans`` on the decoded clouds bit for bit; (e) the test and
+   reference
    backends: ``icp_register`` with ``nn_backend="cellblock"`` and with
    ``"hashgrid"`` (``cell_capacity=10``) on phase 6's 60k terrain, held
    to the pallas backend's iteration count and stop code and 1e-4 m,
    and each backend's NN exact against cKDTree at its final pose; every
    K3 shape they launched that phase 3 did not hold is held against
    plain;
-9. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
+9. the single-host multi-device paths (``parallel/``) on this one card:
+   a mesh of one rank and a mesh of four ranks, all on ``cuda:0`` (the
+   counterpart of the JAX tests' virtual host devices: four ranks on one
+   card measure correctness and overhead, not scaling). For each run its
+   wall, launches and the bytes each rank contributed to collectives per
+   iteration. (a) dp: the headline through ``icp_register_multiscale(...,
+   mesh=)``, one warm-up and one timed run per mesh and a synced
+   breakdown: 1 rank gives the single-device iterations, stop code,
+   transform and history bit for bit; 4 ranks the same iterations and
+   stop code within 1e-4 m; the final pose's NN exact against cKDTree;
+   (b) the partitioned target at 10M (phase 4d's pair,
+   ``tools/exp_partition10m.py``'s recipe: the plane ladder with 8
+   iterations at tolerance 1e-7, then ``icp_register_partitioned(
+   estimator="plane", max_iterations=20, tolerance=0.0)`` from its pose)
+   on 1 and 4 ranks: prep and loop times, fine ms/iteration, the
+   collective repair's passes and queries per iteration; the same
+   iterations and stop code as the 20 iterations on one device without
+   slabs, within 1e-4 m, and 1 rank against 4 within 1e-4 m; on a seeded
+   200,000-row sample of the last iteration's matches each returned point
+   is a target point and a nearest neighbour in f64 (≤ 1e-9 m) and each
+   normal its winner's, bit for bit; every shape launched is held against
+   plain on the ranks' own slabs; (c) the cross-rank tie of
+   ``tests/test_partition.py`` on two ranks returns B exactly, and a 20k
+   terrain lifted 500 m above its target with a halo of 1e-4 sends every
+   query through the collective repair, whose winners equal the plain
+   brute force's over the whole target; (d) phase 8b's four strips
+   through ``register_scans(mesh=4 ranks)``, data-parallel and
+   partitioned, against phase 8b's CPU run (edges, stop codes, poses
+   within 1e-4 m), and phase 8c's tukey graph through
+   ``optimize_pose_graph_sharded`` on 4 ranks within 1e-9 of one device
+   (f64); (e) ``icp-torch run --multiscale --parallel dp|partition`` on a
+   1M LAS pair (the CLI's mesh: one rank per visible card) equals the
+   library call bit for bit, ``graph --parallel dp`` equals
+   ``register_scans(mesh=)`` bit for bit, and ``run --ingest`` exits
+   naming P15b;
+10. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
    the main paths (headline, volume, plane, plane_10m, product, graph,
-   backends), error, times, data-sheet bound and issue floor at its most
-   launched shape, and every measured shape under ``shapes`` with its
+   backends, and phase 9's mesh_dp, mesh_partition, mesh_repair,
+   mesh_graph, mesh_product), error, times, data-sheet bound and issue
+   floor at its most launched shape (K3: the most launched with a
+   library time), and every measured shape under ``shapes`` with its
    launches per path;
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --across-cards``, on a host with several cards,
+runs phases 1 and 2, then phase 9a and 9b's runs on ``make_mesh()`` (one
+rank per visible card, what ``icp-torch --parallel`` builds) against one
+device and a 1-rank mesh: best wall of 3 and the synced breakdown (9a);
+prep, wall and fine ms/iteration (9b); the same iterations and stop code
+within 1e-4 m. It holds no kernel and prints no ``kernels`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without CUDA it exits with code 1 before anything else.
@@ -194,6 +238,27 @@ GRAPH_KW = dict(edges="auto", reuse_device=True, max_iterations=20,
                 tolerance=0.0, mode="gui")
 GRAPH_SMALL = dict(n=50_000, seed=3, extent=32.0)
 GRAPH_SAMPLE = 200_000  # phase 8a: real rows held against cKDTree per edge
+# phase 9: ranks of the multi-rank mesh, all on the one card
+MESH_RANKS = 4
+# phase 9b: tools/exp_partition10m.py's 10M recipe, the ladder init and
+# the partitioned fine pass
+PART_LADDER_KW = dict(nn_backend="pallas", estimator="plane",
+                      max_iterations=8, tolerance=1e-7,
+                      return_registered=False)
+PART_KW = dict(estimator="plane", max_iterations=20, tolerance=0.0,
+               return_registered=False)
+# phase 9b: a halo of 1 mm sends the queries near each slab wall through
+# the collective repair every iteration (up to ~32k rows of a rank's 2.5M
+# in one iteration); a budget that covers them all
+PART_REPAIR_HALO = 1e-3
+PART_REPAIR_BUDGET = 8192
+PART_REPAIR_PASSES = 8
+PART_REPAIR_HELD = 4096  # repaired rows held against the plain brute force
+# phase 9: K3 shapes up to this many pairs get the library yardstick (a
+# chunked cdist takes ~1.2 ns a pair: ~10 s at a 10M slab's 4096 queries)
+LIBRARY_PAIRS_MAX = 1e9
+REPAIR_ALL_N = 20_000   # phase 9c: queries sent through the repair
+REPAIR_ALL_LIFT = 500.0  # m: past every slab margin (a 100 m terrain)
 DEVICE = "cuda"
 
 
@@ -449,11 +514,15 @@ def _k3_kernel_ms(qq, tt, splits, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def _hold_k3(results, qq, tt, issue_rate, replaces, full=True):
+def _hold_k3(results, qq, tt, issue_rate, replaces, full=True,
+             library=True):
     """K3 against plain at (queries, targets) = the shapes of ``qq``,
     ``tt``, and the library yardstick. ``full``: the yardstick's median of
     3 and the kernel at other split counts (their keys must equal the
-    chosen count's); else one timed yardstick call."""
+    chosen count's); else one timed yardstick call. ``library=False``
+    skips the yardstick (phase 9's shapes past ``LIBRARY_PAIRS_MAX``
+    pairs, on a 10M target's slabs, each a ~10 s chunked cdist; the
+    kernel line's ``library_ms`` comes from a shape that has one)."""
     from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
     from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
         brute_keys,
@@ -489,7 +558,8 @@ def _hold_k3(results, qq, tt, issue_rate, replaces, full=True):
         "CTAs)", lambda: nn_brute(qq, tt),
         lambda: nn_bruteforce(qq, tt), compare_brute, n_q * n_t,
         (n_q + n_t) * 12 + n_q * 8, issue_rate,
-        library=lambda: cdist_argmin(qq, tt), library_once=not full,
+        library=(lambda: cdist_argmin(qq, tt)) if library else None,
+        library_once=not full,
         device_ms=by_splits[splits], plain_reps=5 if full else 2)
     entry.update(shape=f"{n_q} x {n_t}", replaces=replaces, splits=splits)
     _record(results, "brute_nn", (n_q, n_t), entry)
@@ -519,7 +589,7 @@ def _stage_tiles(t):
 
 
 def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
-                     issue_rate, full=True):
+                     issue_rate, full=True, library=True):
     """Every kernel one slab-sweep factory's nn_fn can launch, on its
     grids: the fine sweep over a whole layout of the target + N(0, 0.02)
     (K1, or K2's slot-wise form where the trange sends it there), K2 on
@@ -582,7 +652,7 @@ def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
     bt = 4096 // 128
     for nb in (max(bt // 8, 1), bt):
         _hold_k3(results, ql[:nb * 128].contiguous(), tgt_dev, issue_rate,
-                 f"{tpu}:1103", full=full)
+                 f"{tpu}:1103", full=full, library=library)
 
 
 def phase_kernels(data, vdata, data10, issue_rate):
@@ -1389,15 +1459,12 @@ def phase_product(measured, issue_rate):
         check(rgap <= 0.0005 + 1e-6, f"replay differs: {rgap}")
         check("runs: 1" in status, status)
 
-        # (f) the verbs that are not ported yet (graph runs: phase 8)
-        for argv, item in ((("bench",), "P9"),
-                           (("run", src_las, tgt_las, "--parallel", "dp"),
-                            "P15")):
-            rc, out = _cli(*argv, expect_ok=False)
-            print(f"[7f unported] icp-torch {argv[0]}: exit {rc}, "
-                  f"{out.strip()}", flush=True)
-            check(rc != 0 and f"ROADMAP {item}" in out,
-                  f"{argv[0]} did not exit non-zero naming {item}")
+        # (f) the verb that is not ported yet (--parallel runs: phase 9e)
+        rc, out = _cli("bench", expect_ok=False)
+        print(f"[7f unported] icp-torch bench: exit {rc}, {out.strip()}",
+              flush=True)
+        check(rc != 0 and "ROADMAP P9" in out,
+              "bench did not exit non-zero naming P9")
     return by_shape
 
 
@@ -1628,12 +1695,6 @@ def phase_graph(measured, issue_rate):
         check(same, "icp-torch graph's poses are not the library call's")
         check(len(merged) == sum(len(x) for x in decoded),
               "the merged LAS lost points")
-        rc, out = _cli("graph", *paths[:2], "--parallel", "dp",
-                       expect_ok=False)
-        print(f"[8d icp-torch graph] --parallel dp: exit {rc}, "
-              f"{out.strip()}", flush=True)
-        check(rc != 0 and "ROADMAP P15" in out,
-              "graph --parallel dp did not exit naming P15")
 
     # (e) the test and reference backends on phase 6's 60k terrain
     bdata = make_data(dict(n=CARD_CPU_N, seed=95, noise_sigma=0.01))
@@ -1694,7 +1755,629 @@ def phase_graph(measured, issue_rate):
     check(b_launch["brute_nn"] > 0, "K3 never launched by the backends")
     print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return by_shape, b_shape
+    return by_shape, b_shape, cpu
+
+
+def _spy_repair():
+    """Wrap the partitioned target's collective repair so that each
+    rank's last NN output is kept: (query, matched, dist, normal, rows
+    sent to the repair) after the repair, the result the loop used; and
+    each rank's most rows sent to the repair in one call, under
+    ``("most", rank)``. Returns (store, restore)."""
+    from iterativeclosestpoint_tpu_torch.parallel import partition as tpart
+
+    orig = tpart.collective_repair
+    store = {}
+
+    def spy(comm, query, m6, dist, certified, *a, **k):
+        bad = ~certified
+        most = ("most", comm.rank)
+        store[most] = max(store.get(most, 0), int(bad.sum()))
+        m6, dist = orig(comm, query, m6, dist, certified, *a, **k)
+        store[comm.rank] = (query, m6[:, 0:3], dist, m6[:, 3:6], bad)
+        return m6, dist
+
+    tpart.collective_repair = spy
+
+    def restore():
+        tpart.collective_repair = orig
+
+    return store, restore
+
+
+def _mesh_line(tag, mesh, iters, wall, launches, extra=""):
+    """Per-rank collective bytes per iteration and the launches."""
+    per_rank = [st["bytes_sent"] / max(iters, 1) for st in mesh.stats]
+    print(f"[{tag}] {mesh.size} rank(s) on {mesh.devices[0]}: wall "
+          f"{wall:.4f} s; collective bytes per iteration per rank "
+          f"{per_rank}; launches {launches}{extra}", flush=True)
+    return per_rank
+
+
+def _hold_unheld(tag, by_shape, measured, issue_rate, slabs, queries,
+                 pool):
+    """Hold every shape ``by_shape`` launched that no phase held yet:
+    sweeps on a rank's slab grids (``slabs``: rank → (prepared, slab f32
+    array, slab tensor)), K3 at each (queries, rows) on the rank's slab
+    of that many rows, else on the first rows of ``pool`` (the run's
+    target), with the first rows of ``queries`` as queries; K3 with the
+    library yardstick up to ``LIBRARY_PAIRS_MAX`` pairs."""
+    tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
+    unheld = _unheld(by_shape, measured)
+    print(f"[{tag}] launched shapes no phase held yet: {unheld}", flush=True)
+    for r, (prep, slab_np, slab_dev) in slabs.items():
+        if any(nm != "brute_nn" for nm, _ in _unheld(by_shape, measured)):
+            _hold_slab_grids(measured, f"{tag} {r} slab", prep, slab_np,
+                             slab_dev, np.random.default_rng(9), issue_rate,
+                             full=False, library=False)
+    for nm, (n_q, n_t) in _unheld(by_shape, measured):
+        tt = next((sd for _, _, sd in slabs.values() if sd.shape[0] == n_t),
+                  None)
+        if tt is None:
+            check(pool.shape[0] >= n_t, f"{tag}: no target of {n_t} rows")
+            tt = pool[:n_t].contiguous()
+        _hold_k3(measured, queries[:n_q].contiguous(), tt, issue_rate,
+                 f"{tpu}:1103", full=False,
+                 library=n_q * n_t <= LIBRARY_PAIRS_MAX)
+    check(not _unheld(by_shape, measured), f"{tag}: a shape is unheld")
+
+
+def phase_mesh(data, data10, measured, issue_rate, small_cpu):
+    """Phase 9, the single-host multi-device paths on one card: a mesh of
+    one rank and one of four ranks on ``cuda:0``; see the module
+    docstring. Returns {path: launches by shape}."""
+    import tempfile
+    from pathlib import Path
+
+    from scipy.spatial import cKDTree
+
+    from iterativeclosestpoint_tpu_torch import (
+        icp_register,
+        icp_register_multiscale,
+    )
+    from iterativeclosestpoint_tpu_torch.io.las import read_las, write_las
+    from iterativeclosestpoint_tpu_torch.models.multiscale import (
+        _prepare_fine,
+    )
+    from iterativeclosestpoint_tpu_torch.models.posegraph import (
+        detect_overlap_edges,
+        optimize_pose_graph,
+        register_scans,
+    )
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.bruteforce import nn_bruteforce
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        icp_register_partitioned,
+        make_mesh,
+        optimize_pose_graph_sharded,
+    )
+    from iterativeclosestpoint_tpu_torch.parallel import partition as tpart
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+    from iterativeclosestpoint_tpu_torch.utils.config import ICPConfig
+    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        random_rigid_transform,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    card = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    one = make_mesh(devices=[card])
+    four = make_mesh(devices=[card] * MESH_RANKS)
+    paths = {}
+
+    # (a) dp, the headline
+    kw = dict(HEADLINE_KW, device=DEVICE)
+    src, tgt = data["src"], data["tgt"]
+    base = icp_register_multiscale(src, tgt, **kw).final
+    _, prepared, _ = _prepare_fine(src, tgt, kw, dev)
+    by_dp = {}
+    for tag, mesh in (("9a dp", one), ("9a dp", four)):
+        tag = f"{tag} {mesh.size} rank{'s' if mesh.size > 1 else ''}"
+        icp_register_multiscale(src, tgt, mesh=mesh, **kw)  # warm-up
+        mesh.reset_stats()
+        sk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = icp_register_multiscale(src, tgt, mesh=mesh, **kw)
+        wall = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        for k, c in sk.LAUNCH_SHAPES.items():
+            by_dp[k] = by_dp.get(k, 0) + c
+        fine = res.final
+        _mesh_line(tag, mesh, fine.iterations, wall, launches)
+        _breakdown(tag, data, dict(kw, mesh=mesh))
+        gap = _pose_gap(fine.transform, base.transform, src)
+        same = (np.array_equal(fine.transform, base.transform)
+                and np.array_equal(fine.history_transform,
+                                   base.history_transform))
+        print(f"[{tag}] {fine.iterations} iterations, {fine.message!r} "
+              f"(single device {base.iterations}, {base.message!r}); "
+              f"transform and history bit-equal to the single-device run: "
+              f"{same}; registration error between them {gap:.3e} m",
+              flush=True)
+        check((fine.iterations, fine.stop_reason)
+              == (base.iterations, base.stop_reason),
+              f"{tag}: iterations or stop code differ from one device")
+        if mesh.size == 1:
+            check(same, f"{tag}: not bit-equal to the single-device run")
+        check(gap <= 1e-4, f"{tag}: {gap} m from the single-device run")
+        check(launches["colsweep_fused"] > 0, f"{tag}: K1 never launched")
+        _final_pose(tag, data, fine.transform, prepared)
+    del prepared
+    paths["mesh_dp"] = by_dp
+    _hold_unheld("9a dp", by_dp, measured, issue_rate, {},
+                 torch.as_tensor(data["src_local"], device=dev),
+                 torch.as_tensor(data["tgt_local"], device=dev))
+
+    # (b) the partitioned target at 10M: tools/exp_partition10m.py's
+    # recipe, ladder init then 20 partitioned plane iterations.
+    src, tgt = data10["src"], data10["tgt"]
+    t0 = time.perf_counter()
+    ladder = icp_register_multiscale(src, tgt, device=DEVICE,
+                                     **PART_LADDER_KW).final
+    t_ladder = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = icp_register(src, tgt, initial_transform=ladder.transform,
+                       nn_backend="pallas", device=DEVICE, **PART_KW)
+    t_ref = time.perf_counter() - t0
+    print(f"[9b partition 10M] ladder init {t_ladder:.4f} s "
+          f"({ladder.iterations} iterations, rmse {ladder.rmse:.6f}); the "
+          f"same 20 iterations on "
+          f"one device without slabs: {t_ref:.4f} s, {ref.message!r}",
+          flush=True)
+    tgt_local = data10["tgt_local"]
+    tree = cKDTree(tgt_local.astype(np.float64))
+    # The normals the partition carries: the whole target's, estimated
+    # on the card from the f64 centred cloud (``prepare_partition``).
+    tgt_f64 = data10["tgt"] - data10["offset"]
+    nrm_ref = tpart._target_normals(
+        torch.as_tensor(tgt_f64, dtype=torch.float32, device=dev), tgt_f64)
+    del tgt_f64
+    results = {}
+    by_part = {}
+    slabs = {}
+    tgt_dev = torch.as_tensor(tgt_local, device=dev)
+    # The recipe on 1 and 4 ranks (halo 2% of the extent: after the ladder
+    # no query needs the repair), and on 4 ranks with a 1 mm halo, where
+    # the queries near each wall go through it every iteration.
+    for mesh, halo in ((one, None), (four, None), (four, PART_REPAIR_HALO)):
+        tag = (f"9b partition 10M {mesh.size} "
+               f"rank{'s' if mesh.size > 1 else ''}"
+               + (f" halo {halo:g}" if halo else ""))
+        run_kw = dict(PART_KW)
+        if halo:
+            run_kw.update(repair_budget=PART_REPAIR_BUDGET,
+                          repair_passes=PART_REPAIR_PASSES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp = tpart.prepare_partition(tgt, mesh=mesh, estimator="plane",
+                                     halo=halo, n_queries_hint=len(src))
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        mesh.reset_stats()
+        sk.reset_launches()
+        store, restore = _spy_repair()
+        try:
+            with collect(sync=True) as col:
+                t0 = time.perf_counter()
+                res = icp_register_partitioned(
+                    src, tgt, mesh=mesh, prepared_partition=pp,
+                    initial_transform=ladder.transform, **run_kw)
+                wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = dict(sk.LAUNCHES)
+        for k, c in sk.LAUNCH_SHAPES.items():
+            by_part[k] = by_part.get(k, 0) + c
+        if not halo:
+            results[mesh.size] = res
+        it = res.iterations
+        st = mesh.stats
+        per_rank = _mesh_line(
+            tag, mesh, it, wall, launches,
+            f"; prep {t_prep:.4f} s (local search {pp['local_search']}, R="
+            f"{pp['resolution']}, trange {pp['trange']}, coarse trange "
+            f"{pp['coarse_trange']}, slabs "
+            f"{[int(p.shape[0]) for p in pp['part'].halo_pts]} rows)")
+        passes = sum(s["repair_passes"] for s in st) / mesh.size / it
+        queries = sum(s["repair_queries"] for s in st) / it
+        print(f"[{tag}] stages: " + "; ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in col.stages.items())
+            + f"; fine {col.stages['loop'] * 1e3 / it:.4f} ms/iteration; "
+            f"collective repair {passes:.3f} passes and {queries:.1f} "
+            f"queries per iteration (all ranks; most in one call per rank "
+            f"{[store.get(('most', r), 0) for r in range(mesh.size)]}); "
+            f"{it} iterations, {res.message!r}", flush=True)
+        # The loop's statistics stay under 1 KB an iteration; the repair
+        # adds its exchanged queries and winners (halo 1 mm).
+        check(halo or max(per_rank) < 1024,
+              f"{tag}: {per_rank} B per iteration")
+        # One slab of the whole 10M target gets the base grid's trange of
+        # 1536, where the fine sweep is K2's slot-wise form (as in 4d's
+        # first stage); the 4 slabs' grids take K1.
+        if mesh.size == 1:
+            check(launches["colsweep"] > 0, f"{tag}: K2 never launched")
+        else:
+            check(launches["colsweep_fused"] > 0, f"{tag}: K1 never launched")
+        if halo:
+            cap = run_kw["repair_budget"] * run_kw["repair_passes"]
+            check(queries > 0, f"{tag}: no query went through the repair")
+            check(all(store.get(("most", r), 0) <= cap
+                      for r in range(mesh.size)),
+                  f"{tag}: more rows sent to the repair than it covers")
+        gap_ref = _pose_gap(res.transform, ref.transform, src[::10])
+        print(f"[{tag}] against the same iterations on one device without "
+              f"slabs: {ref.iterations}, {ref.message!r}; registration "
+              f"error {gap_ref:.3e} m over every 10th point", flush=True)
+        check((res.iterations, res.stop_reason)
+              == (ref.iterations, ref.stop_reason),
+              f"{tag}: iterations or stop code differ from one device")
+        check(gap_ref <= 1e-4, f"{tag}: {gap_ref} m from one device")
+        # The last iteration's NN on a seeded sample of the rows, and
+        # (halo 1 mm) on every row that went through the repair.
+        q = torch.cat([store[r][0] for r in range(mesh.size)])
+        m = torch.cat([store[r][1] for r in range(mesh.size)])
+        dd = torch.cat([store[r][2] for r in range(mesh.size)])
+        nr = torch.cat([store[r][3] for r in range(mesh.size)])
+        bad = torch.cat([store[r][4] for r in range(mesh.size)])
+        gen = torch.Generator(device=dev).manual_seed(7)
+        sample = [("sampled", torch.randperm(q.shape[0], generator=gen,
+                                             device=dev)[:SAMPLE_10M])]
+        if halo:
+            sample.append(("repaired", torch.nonzero(bad)[:, 0]))
+        for what, rows in sample:
+            qh = q[rows].cpu().numpy().astype(np.float64)
+            mh = m[rows].cpu().numpy().astype(np.float64)
+            d_ref, _ = tree.query(qh, workers=-1)
+            d0, win = tree.query(mh, workers=-1)
+            wgap = float(np.abs(np.linalg.norm(mh - qh, axis=1)
+                                - d_ref).max())
+            same_n = torch.equal(nr[rows], nrm_ref[torch.as_tensor(
+                win, device=dev)])
+            print(f"[{tag}] last iteration's NN on {len(qh)} {what} rows: "
+                  f"matched rows are target points: {not d0.any()}; "
+                  f"winners' f64 distance - cKDTree {wgap:.3e} m; normals "
+                  f"equal the target's normal at the winner: {same_n}",
+                  flush=True)
+            check(not d0.any(), f"{tag}: a matched point is not a target "
+                  "point")
+            check(wgap <= 1e-9, f"{tag}: a match is not a nearest neighbour")
+            check(same_n, f"{tag}: a returned normal is not its winner's")
+        if halo:
+            # The plain brute force over the whole target, first minimum
+            # in target order, on the first repaired rows.
+            rows = sample[1][1][:PART_REPAIR_HELD]
+            t0 = time.perf_counter()
+            bi, bd = nn_bruteforce(q[rows], tgt_dev)
+            same = (torch.equal(m[rows], tgt_dev[bi])
+                    and torch.equal(dd[rows], bd))
+            print(f"[{tag}] {len(rows)} repaired rows against the plain "
+                  f"brute force over all {len(tgt_dev)} target rows "
+                  f"({time.perf_counter() - t0:.3f} s): winners and "
+                  f"distances bit for bit: {same}", flush=True)
+            check(same, f"{tag}: a repaired winner differs from brute force")
+        del store, q, m, dd, nr, bad
+        for r in range(mesh.size):
+            # Each rank's slab and its grids, for holding the shapes the
+            # runs launched (K3's target rows differ per slab).
+            slab = pp["part"].halo_pts[r]
+            grid, cgrid, _, _ = tpart._slab_grids(
+                slab, pp["part"].halo_nrm[r], resolution=pp["resolution"],
+                trange=pp["trange"], coarse_trange=pp["coarse_trange"],
+                fine_kernel=pp["fine_kernel"])
+            slabs[f"{tag[len('9b partition 10M '):]}, rank {r}"] = (
+                (None, (grid, cgrid, pp["part"].halo_nrm[r]),
+                 pp["resolution"]), slab.cpu().numpy(), slab)
+        del pp
+    gap14 = _pose_gap(results[1].transform, results[MESH_RANKS].transform,
+                      src[::10])
+    print(f"[9b partition 10M] 1 rank against {MESH_RANKS} ranks: "
+          f"registration error {gap14:.3e} m over every 10th point",
+          flush=True)
+    check(results[1].iterations == results[MESH_RANKS].iterations,
+          "9b: 1 and 4 ranks differ in iterations")
+    check(gap14 <= 1e-4, f"9b: 1 and 4 ranks differ by {gap14} m")
+    paths["mesh_partition"] = by_part
+    _hold_unheld("9b partition 10M", by_part, measured, issue_rate, slabs,
+                 torch.as_tensor(data10["src_local"][:4 * PART_REPAIR_BUDGET],
+                                 device=dev), tgt_dev)
+    del tree, slabs, nrm_ref, tgt_dev
+
+    # (c) the tie combine and the collective repair on every query
+    rng = np.random.default_rng(7)
+    base_c = rng.uniform(-50, 50, (1000, 3))
+    B = np.array([[+1.0, 0.0, 200.0]])  # original index 1000, slab 1
+    A = np.array([[-1.0, 0.0, 200.0]])  # original index 1001, slab 0
+    two = make_mesh(devices=[card] * 2)
+    part = tpart.build_partition(np.concatenate([base_c, B, A]),
+                                 two.devices, 1e-3)
+    qt = torch.tensor([[0.0, 0.0, 200.0]], device=dev)
+
+    def tie_rank(comm):
+        r = comm.rank
+        state = (part.halo_pts[r], part.halo_idx[r], None,
+                 torch.tensor(part.x_lo[r], dtype=torch.float32, device=dev),
+                 torch.tensor(part.x_hi[r], dtype=torch.float32, device=dev),
+                 None, None)
+        nn = tpart._partitioned_nn(comm, state, local_search="brute",
+                                   with_normals=False, repair_budget=64,
+                                   repair_passes=2)
+        return nn(qt.clone(), None, None)
+
+    tie = two.run(tie_rank)
+    exact = all(torch.equal(mm.cpu(), torch.tensor(B, dtype=torch.float32))
+                for mm, _ in tie)
+    print(f"[9c tie] two ranks, B (index 1000, slab 1) and A (index 1001, "
+          f"slab 0) equidistant from the query: matched "
+          f"{[mm.cpu().tolist() for mm, _ in tie]}, distances "
+          f"{[float(dd) for _, dd in tie]}; exactly B on both ranks: {exact}",
+          flush=True)
+    check(exact, "the cross-rank tie did not resolve to B")
+
+    cdata = make_data(dict(n=REPAIR_ALL_N, seed=9, noise_sigma=0.02,
+                           kind="terrain", extent=100.0))
+    lift = np.eye(4)
+    lift[2, 3] = REPAIR_ALL_LIFT
+    four.reset_stats()
+    sk.reset_launches()
+    store, restore = _spy_repair()
+    try:
+        t0 = time.perf_counter()
+        icp_register_partitioned(
+            cdata["src"], cdata["tgt"], mesh=four, halo=1e-4,
+            local_search="brute", initial_transform=lift, max_iterations=1,
+            repair_budget=2048, repair_passes=4, return_registered=False)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    by_rep = dict(sk.LAUNCH_SHAPES)
+    queries = sum(s["repair_queries"] for s in four.stats)
+    tgt_dev = torch.as_tensor(cdata["tgt_local"], device=dev)
+    same = True
+    for r in range(MESH_RANKS):
+        q, mm, dd, _, _ = store[r]
+        bi, bd = nn_bruteforce(q, tgt_dev)
+        same &= torch.equal(mm, tgt_dev[bi]) and torch.equal(dd, bd)
+    print(f"[9c repair] {REPAIR_ALL_N} queries lifted {REPAIR_ALL_LIFT} m "
+          f"above the target, halo 1e-4, {MESH_RANKS} ranks, brute local "
+          f"search: {queries} queries repaired collectively in {wall:.4f} s "
+          f"({four.stats[0]['repair_passes']} passes); every winner and "
+          f"distance the plain brute force's over the whole target (first "
+          f"minimum in target order), bit for bit: {same}; launches "
+          f"{dict(sk.LAUNCHES)}", flush=True)
+    check(queries == REPAIR_ALL_N, f"9c: {queries} queries repaired")
+    check(same, "9c: a collective repair winner differs from brute force")
+    paths["mesh_repair"] = by_rep
+    _hold_unheld("9c repair", by_rep, measured, issue_rate, {},
+                 torch.as_tensor(cdata["src_local"], device=dev), tgt_dev)
+    del store
+
+    # (d) the pose graph over the mesh
+    small = strip_scans(**GRAPH_SMALL)
+    skw = dict(GRAPH_KW, crop_margin=0.0, reuse_device=False)
+    by_graph = {}
+    for partition in (False, True):
+        tag = f"9d graph {'partition' if partition else 'dp'}"
+        stats = {}
+        sk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = register_scans(small, mesh=four, partition=partition,
+                           device=DEVICE, stats=stats, **skw)
+        wall = time.perf_counter() - t0
+        for k, c in sk.LAUNCH_SHAPES.items():
+            by_graph[k] = by_graph.get(k, 0) + c
+        per_edge = [(er.iterations, er.stop_reason) for er in g.edge_results]
+        ref_edge = [(er.iterations, er.stop_reason)
+                    for er in small_cpu.edge_results]
+        gap = max(_pose_gap(a, b, s) for a, b, s in zip(g.poses,
+                                                        small_cpu.poses,
+                                                        small))
+        print(f"[{tag}] {MESH_RANKS} ranks on the card, edges "
+              f"{detect_overlap_edges(small)}: {per_edge} in {wall:.3f} s "
+              f"(CPU, one device: {ref_edge}); GN {g.iterations} iterations "
+              f"(CPU {small_cpu.iterations}); stats {stats}; max pose "
+              f"registration error against the CPU {gap:.3e} m", flush=True)
+        check(per_edge == ref_edge, f"{tag}: edges differ from the CPU's")
+        check(gap <= 1e-4, f"{tag}: {gap} m from the CPU")
+        if partition:
+            check(stats.get("partitions_built") == 3, f"{tag}: {stats}")
+    paths["mesh_graph"] = by_graph
+    pool = torch.as_tensor(np.concatenate(small).astype(np.float32),
+                           device=dev)
+    _hold_unheld("9d graph", by_graph, measured, issue_rate, {}, pool, pool)
+
+    poses = [np.eye(4)] + [random_rigid_transform(seed=11 + s)
+                           for s in range(1, 5)]
+    g_edges = [(i, i + 1, np.linalg.inv(poses[i]) @ poses[i + 1])
+               for i in range(4)]
+    g_edges.append((0, 4, np.linalg.inv(poses[0]) @ poses[4]))
+    bad = np.linalg.inv(poses[1]) @ poses[3]
+    bad[:3, 3] += np.array([2.0, -1.5, 1.0])
+    g_edges.append((1, 3, bad))
+    gkw = dict(n_poses=5, robust="tukey", max_iterations=40)
+    g1 = optimize_pose_graph(g_edges, device=DEVICE, **gkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g4 = optimize_pose_graph_sharded(g_edges, mesh=four, **gkw)
+    gn_ms = (time.perf_counter() - t0) * 1e3
+    gap = float(np.abs(g4.poses - g1.poses).max())
+    print(f"[9d gn] tukey, edges split over {MESH_RANKS} ranks: "
+          f"{g4.iterations} iterations in {gn_ms:.3f} ms (one device "
+          f"{g1.iterations}); max |sharded - one device| {gap:.3e} (f64)",
+          flush=True)
+    check(gap <= 1e-9 and g4.iterations == g1.iterations,
+          f"sharded GN against one device: {gap}")
+
+    # (e) the product surface: --parallel on the card's one-rank mesh
+    by_prod = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        src_las, tgt_las = d / "src.las", d / "tgt.las"
+        _cli("synth", src_las, tgt_las, "--n", PRODUCT_N, "--seed", 7,
+             "--noise", 0.02)
+        src, _ = read_las(src_las)
+        tgt, _ = read_las(tgt_las)
+        cfg = ICPConfig(max_iterations=20, nn_backend="pallas")
+        lib_kw = dict(max_iterations=cfg.max_iterations,
+                      tolerance=cfg.tolerance,
+                      sigma_multiplier=cfg.sigma_multiplier, mode=cfg.mode,
+                      nn_backend=cfg.nn_backend, estimator=cfg.estimator,
+                      robust=cfg.robust,
+                      grid_resolution=cfg.grid_resolution or None,
+                      cell_capacity=cfg.cell_capacity, device=DEVICE)
+        for mode in ("dp", "partition"):
+            sk.reset_launches()
+            t0 = time.perf_counter()
+            _, out = _cli("run", src_las, tgt_las, "-o", d / "reg.las",
+                          "--multiscale", "--nn-backend", "pallas",
+                          "--max-iterations", 20, "--parallel", mode)
+            wall = time.perf_counter() - t0
+            for k, c in sk.LAUNCH_SHAPES.items():
+                by_prod[k] = by_prod.get(k, 0) + c
+            T_cli = np.asarray(json.loads(
+                (d / "reg_transform.json").read_text())["transform"])
+            lib = icp_register_multiscale(
+                src, tgt, mesh=make_mesh(device=DEVICE),
+                fine_path="partitioned" if mode == "partition" else "auto",
+                **lib_kw).final
+            same = np.array_equal(lib.transform, T_cli)
+            print(f"[9e icp-torch run --parallel {mode}] {wall:.4f} s; "
+                  f"{[ln for ln in out.splitlines() if 'mesh' in ln]}; "
+                  f"library call {lib.iterations} iterations, "
+                  f"{lib.message!r}; transform bit-equal: {same}", flush=True)
+            check(same, f"run --parallel {mode}: not the library call's")
+        paths_l = [d / f"strip{s}.las" for s in range(len(small))]
+        for p, sc in zip(paths_l, small):
+            write_las(p, sc)
+        sk.reset_launches()
+        _, out = _cli("graph", *paths_l, "--edges", "auto",
+                      "--max-iterations", 20, "--tolerance", 0.0,
+                      "--parallel", "dp", "--poses", d / "poses.json")
+        for k, c in sk.LAUNCH_SHAPES.items():
+            by_prod[k] = by_prod.get(k, 0) + c
+        got = np.asarray(json.loads((d / "poses.json").read_text())["poses"])
+        decoded = [read_las(p)[0] for p in paths_l]
+        lib = register_scans(decoded, edges=detect_overlap_edges(decoded),
+                             max_iterations=20, tolerance=0.0,
+                             device=DEVICE, mesh=make_mesh(device=DEVICE))
+        same = np.array_equal(got, lib.poses)
+        print(f"[9e icp-torch graph --parallel dp] poses bit-equal to "
+              f"register_scans(mesh=make_mesh()) on the decoded clouds: "
+              f"{same}", flush=True)
+        check(same, "graph --parallel dp: not the library call's poses")
+        rc, out = _cli("run", src_las, tgt_las, "--parallel", "partition",
+                       "--ingest", expect_ok=False)
+        print(f"[9e icp-torch run --ingest] exit {rc}, {out.strip()}",
+              flush=True)
+        check(rc != 0 and "ROADMAP P15b" in out,
+              "run --ingest did not exit naming P15b")
+    paths["mesh_product"] = by_prod
+    slabs = {}
+    if any(nm != "brute_nn" for nm, _ in _unheld(by_prod, measured)):
+        pp = tpart.prepare_partition(tgt, mesh=make_mesh(device=DEVICE),
+                                     n_queries_hint=len(src))
+        slab = pp["part"].halo_pts[0]
+        grid, cgrid, _, _ = tpart._slab_grids(
+            slab, None, resolution=pp["resolution"], trange=pp["trange"],
+            coarse_trange=pp["coarse_trange"], fine_kernel=pp["fine_kernel"])
+        slabs["rank 0"] = ((None, (grid, cgrid, None), pp["resolution"]),
+                    slab.cpu().numpy(), slab)
+    pool = torch.as_tensor(tgt - center_offset(tgt), dtype=torch.float32,
+                           device=dev)
+    _hold_unheld("9e product", by_prod, measured, issue_rate, slabs,
+                 torch.as_tensor(src - center_offset(tgt), dtype=torch.float32,
+                                 device=dev), pool)
+    print(f"[9] phase 9 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def phase_across_cards(data, data10):
+    """``--across-cards``: phase 9a and 9b's runs on ``make_mesh()``, one
+    rank per visible card, against one device and a 1-rank mesh; see the
+    module docstring."""
+    from iterativeclosestpoint_tpu_torch import (
+        icp_register,
+        icp_register_multiscale,
+    )
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        icp_register_partitioned,
+        make_mesh,
+        prepare_partition,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+
+    cards = make_mesh()
+    check(cards.size > 1, f"--across-cards needs several cards: {cards}")
+    one = make_mesh(devices=["cuda:0"])
+
+    def synced():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    kw = dict(HEADLINE_KW, device=DEVICE)
+    src, tgt = data["src"], data["tgt"]
+    base = None
+    for label, mesh in (("one device", None), ("1 rank", one),
+                        (f"{cards.size} cards", cards)):
+        tag = f"cards 9a dp, {label}"
+        mkw = dict(kw, mesh=mesh) if mesh is not None else kw
+        icp_register_multiscale(src, tgt, **mkw)  # warm-up
+        walls = []
+        for _ in range(3):
+            synced()
+            t0 = time.perf_counter()
+            res = icp_register_multiscale(src, tgt, **mkw).final
+            walls.append(time.perf_counter() - t0)
+        if base is None:
+            base = res
+        gap = _pose_gap(res.transform, base.transform, src)
+        print(f"[{tag}] wall best {min(walls):.4f} s of "
+              f"{[round(w, 4) for w in walls]}; {res.iterations} iterations, "
+              f"{res.message!r}; registration error against one device "
+              f"{gap:.3e} m", flush=True)
+        _breakdown(tag, data, mkw)
+        check((res.iterations, res.stop_reason)
+              == (base.iterations, base.stop_reason) and gap <= 1e-4,
+              f"{tag}: differs from one device")
+
+    src, tgt = data10["src"], data10["tgt"]
+    ladder = icp_register_multiscale(src, tgt, device=DEVICE,
+                                     **PART_LADDER_KW).final
+    synced()
+    t0 = time.perf_counter()
+    ref = icp_register(src, tgt, initial_transform=ladder.transform,
+                       nn_backend="pallas", device=DEVICE, **PART_KW)
+    print(f"[cards 9b partition 10M, one device without slabs] "
+          f"{time.perf_counter() - t0:.4f} s, {ref.iterations} iterations, "
+          f"{ref.message!r}", flush=True)
+    for label, mesh in (("1 rank", one), (f"{cards.size} cards", cards)):
+        tag = f"cards 9b partition 10M, {label}"
+        synced()
+        t0 = time.perf_counter()
+        pp = prepare_partition(tgt, mesh=mesh, estimator="plane",
+                               n_queries_hint=len(src))
+        synced()
+        t_prep = time.perf_counter() - t0
+        with collect(sync=True) as col:
+            t0 = time.perf_counter()
+            res = icp_register_partitioned(
+                src, tgt, mesh=mesh, prepared_partition=pp,
+                initial_transform=ladder.transform, **PART_KW)
+            synced()
+            wall = time.perf_counter() - t0
+        gap = _pose_gap(res.transform, ref.transform, src[::10])
+        print(f"[{tag}] prep {t_prep:.4f} s; wall {wall:.4f} s; fine "
+              f"{col.stages['loop'] * 1e3 / res.iterations:.4f} "
+              f"ms/iteration; {res.iterations} iterations, {res.message!r}; "
+              f"registration error against one device {gap:.3e} m",
+              flush=True)
+        check((res.iterations, res.stop_reason)
+              == (ref.iterations, ref.stop_reason) and gap <= 1e-4,
+              f"{tag}: differs from one device")
+        del pp
 
 
 def main() -> int:
@@ -1708,6 +2391,17 @@ def main() -> int:
     resolve_device(None)
     name, smi, issue_rate = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--across-cards"]:
+        phase_across_cards(make_data(HEADLINE), make_data(PLANE_10M))
+        print(f"[t] total {time.perf_counter() - t_start:.3f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     def stamp(phase):
         print(f"[t] phase {phase} done at {time.perf_counter() - t_start:.1f}"
@@ -1727,7 +2421,6 @@ def main() -> int:
         paths[path] = phase_main_path(tag, d, measured, zcol, kw)[0]
         stamp(tag.split()[0])
     paths["plane_10m"] = phase_plane_10m(data10, measured)
-    del data10
     stamp("4d")
     phase_repair()
     stamp(5)
@@ -1735,8 +2428,12 @@ def main() -> int:
     stamp(6)
     paths["product"] = phase_product(measured, issue_rate)
     stamp(7)
-    paths["graph"], paths["backends"] = phase_graph(measured, issue_rate)
+    paths["graph"], paths["backends"], small_cpu = phase_graph(measured,
+                                                              issue_rate)
     stamp(8)
+    paths.update(phase_mesh(data, data10, measured, issue_rate, small_cpu))
+    del data10
+    stamp(9)
 
     table = [
         ("colsweep_fused", "colsweep_fused.cu", 1165),
@@ -1770,7 +2467,11 @@ def main() -> int:
                     launches_by_path=per_path, **{f: k[f] for f in keys},
                     **{f: k[f] for f in ("splits", "wrapper_ms")
                        if f in k}))
-        top = max(shapes, key=lambda e: e["launches"])
+        # K3's phase-9 10M slab shapes carry no library time (_hold_k3):
+        # the line's numbers come from the most launched shape with one.
+        top = max(shapes, key=lambda e: (e["library_ms"] is not None
+                                         or name_k != "brute_nn",
+                                         e["launches"]))
         entries.append({
             "name": name_k, "route": "cuda",
             "source": f"iterativeclosestpoint_tpu_torch/csrc/{src_file}",

@@ -23,9 +23,17 @@ reference's product surface (SURVEY.md §2, C9-C16):
               overlap-detected, loop closure) and a pose-graph solve;
               merged LAS in scan 0's frame, pose JSON, scene viewer.
 
-Not ported yet, each exiting non-zero with its ROADMAP item:
-``run``/``graph --parallel dp|partition`` and ``run --ingest`` (P15) and
-``bench`` (P9: ``bench.py`` is the JAX package's benchmark).
+``run``/``graph --parallel dp|partition`` run over a mesh of one rank per
+visible card (``parallel/``; on ``--device cpu`` one CPU rank). The ranks
+are threads of this process, and their host work contends for the
+interpreter: on four H100 cards ``--parallel dp`` ran the 1M fine loop
+~19x and ``partition`` the 10M one ~5x slower than one card (PERF.md §5),
+so ``--parallel none`` is the faster choice wherever one card holds the
+clouds.
+
+Not ported yet, each exiting non-zero with its ROADMAP item: ``run
+--ingest`` (P15b, the multi-process streamed ingest) and ``bench`` (P9:
+``bench.py`` is the JAX package's benchmark).
 """
 
 from __future__ import annotations
@@ -78,9 +86,7 @@ def cmd_run(args) -> int:
             setattr(cfg, field, v)
 
     if args.ingest:
-        return _not_ported("run --ingest", "P15")
-    if args.parallel != "none":
-        return _not_ported(f"run --parallel {args.parallel}", "P15")
+        return _not_ported("run --ingest", "P15b")
     dev = _device_or_exit(args)
     if dev is None:
         return 1
@@ -137,6 +143,7 @@ def cmd_run(args) -> int:
             # Mid-run viewer exports (segment-boundary refresh) when both
             # --live-every and --html are given.
             live_html=(args.html if args.live_every else None),
+            parallel=args.parallel,
             **run_extra,
         )
 
@@ -283,8 +290,10 @@ def cmd_graph(args) -> int:
         register_scans,
     )
 
-    if args.parallel != "none":
-        return _not_ported(f"graph --parallel {args.parallel}", "P15")
+    if args.parallel == "partition" and args.multiscale:
+        _print("--parallel partition cannot combine with --multiscale "
+               "(partitioned edges have no ladder)")
+        return 1
     dev = _device_or_exit(args)
     if dev is None:
         return 1
@@ -322,12 +331,19 @@ def cmd_graph(args) -> int:
         kw["robust"] = args.robust
     if args.nn_backend:
         kw["nn_backend"] = args.nn_backend
+    mesh = None
+    if args.parallel != "none":
+        from iterativeclosestpoint_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=dev)
+        _print(f"parallel={args.parallel}: {mesh.size}-rank mesh")
     stats = {}
     res = register_scans(scans, edges=edges,
                          pose_graph_iterations=args.graph_iterations,
                          multiscale=args.multiscale,
                          graph_robust=args.graph_robust, stats=stats,
-                         device=dev, **kw)
+                         device=dev, mesh=mesh,
+                         partition=args.parallel == "partition", **kw)
     if "scan_uploads" in stats:
         _print(f"device residency: {stats['scan_uploads']} scan uploads, "
                f"{stats.get('grids_built', 0)} NN grids for "
@@ -513,11 +529,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coarse-to-fine pyramid (replaces stride downsample)")
     r.add_argument("--parallel", choices=["none", "dp", "partition"],
                    default="none",
-                   help="multi-device dispatch: not ported yet "
-                        "(ROADMAP P15); only 'none' runs")
+                   help="multi-device dispatch over one rank per visible "
+                        "card: dp = source split over the ranks, "
+                        "partition = target split into x-slabs + halo; the "
+                        "ranks are threads of one process, measured slower "
+                        "than none on 4 H100 cards (PERF.md section 5)")
     r.add_argument("--ingest", action="store_true",
-                   help="streamed partitioned ingest: not ported yet "
-                        "(ROADMAP P15)")
+                   help="streamed multi-process partitioned ingest: not "
+                        "ported yet (ROADMAP P15b)")
     r.add_argument("--live-every", dest="live_every", type=int, default=0,
                    metavar="K",
                    help="stream per-iteration progress every K iterations "
@@ -586,8 +605,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coarse-to-fine pipeline per edge (large scans)")
     g.add_argument("--parallel", choices=["none", "dp", "partition"],
                    default="none",
-                   help="multi-device edge ICP: not ported yet "
-                        "(ROADMAP P15); only 'none' runs")
+                   help="multi-device edges over one rank per visible "
+                        "card (dp: source split; partition: target split "
+                        "into x-slabs) and the edge-sharded pose graph; the "
+                        "ranks are threads of one process, measured slower "
+                        "than none on 4 H100 cards (PERF.md section 5)")
     g.add_argument("--graph-robust", dest="graph_robust",
                    choices=["none", "huber", "tukey"], default="none",
                    help="IRLS edge weighting in the pose-graph solve "

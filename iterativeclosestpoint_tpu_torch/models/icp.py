@@ -26,6 +26,13 @@ stop) or resumed from a carry (``resume_carry``) follows the one-dispatch
 trajectory bit for bit. Coordinates are centered on the host by an f64
 offset; device math is f32, and the result is re-based to the world frame
 on the way out.
+
+Every cross-row statistic goes through a reducer ``ps``: None (the
+identity) on one device, a mesh rank's ``Comm.psum`` on the
+multi-device paths (``parallel/``), where the source rows are split over
+ranks. The JAX package's ``icp_core_impl`` routes the same sums through
+``psum`` (``models/icp.py:328-331``); with ``ps=None`` every result here
+is what it was before the seam, bit for bit.
 """
 
 from __future__ import annotations
@@ -121,26 +128,32 @@ class ICPResult:
         ]
 
 
+def _identity(x):
+    return x
+
+
 def iteration_statistics(dist, weight, sigma_multiplier, widen_first: bool,
-                         is_first: bool):
+                         is_first: bool, ps=None):
     """Distance statistics + 3σ inlier mask for one iteration.
 
     Population mean/σ over all pairs, threshold = mean + 3σ (first gui
     iteration: mean + max(3σ, 0.5·mean)), RMSE over inliers only.
-    ``weight`` is 0 on layout padding rows.
+    ``weight`` is 0 on layout padding rows. ``ps`` reduces each sum over
+    the mesh's ranks (None: one device).
     """
+    ps = ps or _identity
     f = dist.dtype
-    n = weight.sum()
-    mean = (dist * weight).sum() / n
+    n = ps(weight.sum())
+    mean = ps((dist * weight).sum()) / n
     dev = dist - mean
-    std = torch.sqrt((weight * (dev * dev)).sum() / n)
+    std = torch.sqrt(ps((weight * (dev * dev)).sum()) / n)
     if widen_first and is_first:
         threshold = mean + torch.maximum(sigma_multiplier * std, mean * 0.5)
     else:
         threshold = mean + sigma_multiplier * std
     valid = (dist <= threshold) & (weight > 0)
-    valid_count = valid.sum()
-    sum_sq = torch.where(valid, dist * dist, torch.zeros_like(dist)).sum()
+    valid_count = ps(valid.sum(dtype=torch.int32))
+    sum_sq = ps(torch.where(valid, dist * dist, torch.zeros_like(dist)).sum())
     rmse = torch.where(
         valid_count > 0,
         torch.sqrt(sum_sq / torch.clamp(valid_count, min=1).to(f)),
@@ -149,20 +162,24 @@ def iteration_statistics(dist, weight, sigma_multiplier, widen_first: bool,
     return mean, std, threshold, valid, valid_count, rmse, n
 
 
-def _global_masked_median(dist, weight):
+def _global_masked_median(dist, weight, ps=None):
     """Exact lower median of ``dist`` over weight > 0 rows:
-    ``sorted(valid)[(cnt-1)//2]``, the M-estimators' scale."""
+    ``sorted(valid)[(cnt-1)//2]``, the M-estimators' scale; over every
+    rank's rows when ``ps`` reduces over a mesh."""
+    ps = ps or _identity
     valid = weight > 0
-    k = torch.clamp(valid.sum() - 1, min=0) // 2
-    return _global_masked_kth(dist, valid, k)
+    k = torch.clamp(ps(valid.sum(dtype=torch.int32)) - 1, min=0) // 2
+    return _global_masked_kth(dist, valid, k, ps)
 
 
-def _global_masked_kth(values, valid, k):
+def _global_masked_kth(values, valid, k, ps=None):
     """Exact k-th smallest (0-based) of non-negative ``values`` over
     ``valid`` rows, by bisection on the float bit pattern (monotone for
     non-negative floats): 31 masked counts for f32, 63 for f64, all on the
-    device. The JAX package's arithmetic, wrap-around included, so the
-    result is its value bit for bit (with no valid row that is −0.0)."""
+    device, each reduced by ``ps`` (one int32 per round over a mesh). The
+    JAX package's arithmetic, wrap-around included, so the result is its
+    value bit for bit (with no valid row that is −0.0)."""
+    ps = ps or _identity
     if values.dtype == torch.float64:
         ibits = values.view(torch.int64)
         nbits, itype, ftype = 63, torch.int64, torch.float64
@@ -173,17 +190,17 @@ def _global_masked_kth(values, valid, k):
     hi = torch.full((), 2**nbits - 1, dtype=itype, device=values.device)
     for _ in range(nbits):
         mid = lo + (hi - lo) // 2
-        take = (valid & (ibits <= mid)).sum() >= k + 1
+        take = ps((valid & (ibits <= mid)).sum(dtype=torch.int32)) >= k + 1
         lo, hi = torch.where(take, lo, mid + 1), torch.where(take, mid, hi)
     return lo.view(ftype).to(values.dtype)
 
 
-def _robust_weights(dist, weight, robust: str):
+def _robust_weights(dist, weight, robust: str, ps=None):
     """M-estimator weights of the pose update. The scale is median-based
     (σ̂ = med(d) / 0.6745): the plain σ is inflated by the very
     contamination being downweighted. Huber c = 1.345σ̂, Tukey c =
     4.685σ̂; σ̂ = 0 (already aligned) falls back to the plain mask."""
-    scale = _global_masked_median(dist, weight) / 0.6745
+    scale = _global_masked_median(dist, weight, ps) / 0.6745
     if robust == "huber":
         c = 1.345 * scale
         w = torch.clamp(c / torch.clamp(dist, min=1e-30), max=1.0)
@@ -194,20 +211,22 @@ def _robust_weights(dist, weight, robust: str):
     return torch.where(scale > 0, w, torch.ones_like(w))
 
 
-def _plane_global(src, dst, nrm, valid):
+def _plane_global(src, dst, nrm, valid, ps=None):
     """Point-to-plane update: minimise Σ v·((R·s + t − d)·n)² linearised
     about the identity (R·s ≈ s + ω×s), solved as 6×6 normal equations
     with λ = 1e-6·tr/6 + 1e-12 on the diagonal, lifted to SE(3) by the
     exponential map. ``solve_ex`` reads nothing to the host; a failed
-    solve leaves non-finite values, which the loop stops on."""
+    solve leaves non-finite values, which the loop stops on. ``ps`` sums
+    the 6×6 system over a mesh's ranks."""
+    ps = ps or _identity
     f = src.dtype
     v = valid.to(f)
     nrm = nrm.to(f)
     r0 = ((src - dst) * nrm).sum(dim=1)
     J = torch.cat([nrm, torch.linalg.cross(src, nrm, dim=1)], dim=1)
     Jv = J * v[:, None]
-    H6 = Jv.T @ J
-    g = Jv.T @ r0
+    H6 = ps(Jv.T @ J)
+    g = ps(Jv.T @ r0)
     lam = 1e-6 * torch.trace(H6) / 6.0 + 1e-12
     delta, _ = torch.linalg.solve_ex(
         H6 + lam * torch.eye(6, dtype=f, device=src.device), -g)
@@ -218,7 +237,7 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
              max_iterations: int, tolerance: float, sigma_multiplier: float,
              widen_first: bool, estimator: str = "point",
              robust: str = "none", carry: Optional[tuple] = None,
-             return_registered: bool = True) -> dict:
+             return_registered: bool = True, ps=None) -> dict:
     """The ICP loop in the centered local frame.
 
     ``carry`` = (T_cum, prev_error, no_improve) starts the convergence
@@ -226,7 +245,9 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
     the final carry, the stop code, the recorded count and the history
     (device tensors), and the registered source when asked. ``nn_fn``
     returns (matched, dist), plus the matched normals for the plane
-    estimator.
+    estimator. ``ps`` (a mesh rank's ``psum``) reduces every statistic
+    over the ranks' rows, so each rank takes the same decisions; None on
+    one device.
     """
     f = source.dtype
     dev = source.device
@@ -259,7 +280,8 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
         else:
             dst, dist = nn_fn(src, target, nn_state)
         mean, std, thr, valid, valid_count, rmse, n_real = (
-            iteration_statistics(dist, weight, sig, widen_first, it == 0))
+            iteration_statistics(dist, weight, sig, widen_first, it == 0,
+                                 ps))
         numerr = ~torch.isfinite(rmse + mean + std)
         small = torch.abs(prev - rmse) < tol
         no_improve = torch.where(small, noimp + 1, torch.zeros_like(noimp))
@@ -268,15 +290,16 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
         too_few = ~converged & ~diverged & (valid_count < 3)
         will_update = ~(converged | diverged | too_few | numerr)
         upd_w = (valid if robust == "none"
-                 else valid.to(f) * _robust_weights(dist, weight, robust))
+                 else valid.to(f) * _robust_weights(dist, weight, robust,
+                                                    ps))
         if estimator == "plane":
             # A linearisation about the CURRENT pose: the increment
             # composes onto the cumulative transform.
-            T_cand = _plane_global(src, dst, nrm, upd_w) @ T_cum
+            T_cand = _plane_global(src, dst, nrm, upd_w, ps) @ T_cum
         else:
             # Kabsch from the PRISTINE source to the matched targets fits
             # T_cum directly (no chain of rounded 4×4 products).
-            T_cand = kabsch_masked(source, dst, upd_w)
+            T_cand = kabsch_masked(source, dst, upd_w, ps)
         numerr = numerr | ~torch.isfinite(T_cand).all()
         will_update = will_update & ~numerr
         T_new = torch.where(will_update, T_cand, T_cum)

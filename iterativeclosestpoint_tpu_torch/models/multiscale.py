@@ -26,6 +26,16 @@ That ordering is left out on purpose: here the fine level's upload,
 grid estimate and grid build simply run after the coarse level, and the
 ``overlap_device_prep`` option that switched it is accepted and changes
 nothing.
+
+With a ``mesh`` the coarse levels run on one device and the fine level
+runs data-parallel over the mesh (``parallel.sharded``), from the same
+device-side fine inputs (grids, and the source moved by the coarse pose
+on its device), so a 1-rank mesh is the single-device run bit for bit;
+the two-stage boosted level is a single-device refinement and stays off
+under a mesh, as in the JAX package. ``fine_path="partitioned"`` runs the
+fine level with the target split into x-slabs over the mesh
+(``parallel.partition``), with the coarse transform as its initial
+pose; ``nn_backend`` maps onto its local search.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 from iterativeclosestpoint_tpu_torch.models.icp import (
     MAX_ITERATIONS,
     ICPResult,
+    _compose_callback,
     icp_register,
 )
 from iterativeclosestpoint_tpu_torch.ops.cellblock import (
@@ -76,11 +87,12 @@ class MultiscaleResult:
         return self.final.success
 
 
-def _prepare_fine(source, target, fine_kwargs, dev):
+def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
     """Upload the centered f32 clouds and build the fine-level grids
     (with the target's normals in plane mode). Returns (device_data,
     prepared_nn, prepared_nn2): the second factory is the two-stage fine
-    level's boosted grid, or None where its gate refuses."""
+    level's boosted grid, or None where its gate refuses (or
+    ``two_stage`` is false: a mesh's fine level has one stage)."""
     with stage("host_prep"):
         offset = (center_offset(target) if fine_kwargs.get("center", True)
                   else np.zeros(3))
@@ -98,7 +110,7 @@ def _prepare_fine(source, target, fine_kwargs, dev):
             tgt_local, fine_kwargs.get("grid_resolution"), model=model)
         boost2_est = None
         R, trange, _, base, zrange = grid_est
-        if (plane and auto_r and R == base and zrange is None
+        if (two_stage and plane and auto_r and R == base and zrange is None
                 and trange < 2048
                 and surface_boost_ok(tgt_local, 2 * base, occupancy=16,
                                      model=model)):
@@ -140,7 +152,12 @@ def icp_register_multiscale(
     ``strides``: explicit pyramid, e.g. (16, 4, 1); default = one coarse
     level with stride ceil(N / coarse_max_points) (plus sqrt-spaced levels
     for very large clouds) then full resolution. ``device``: None means the
-    card; "cpu" runs the plain versions. ``coarse_nn_backend`` ("auto",
+    card; "cpu" runs the plain versions; the coarse levels and the fine
+    level's device inputs live there. ``mesh`` (``parallel.make_mesh``)
+    runs the fine level over its ranks: data-parallel with
+    ``fine_path="auto"``, the target split into x-slabs with
+    ``fine_path="partitioned"`` (a mesh of one rank on ``device`` when
+    ``mesh`` is None). ``coarse_nn_backend`` ("auto",
     "bruteforce", "pallas", "cellblock" or "hashgrid") is the coarse
     levels' NN backend.
     ``overlap_device_prep`` is the JAX package's TPU upload ordering; it is
@@ -148,11 +165,7 @@ def icp_register_multiscale(
     ``fine_kwargs`` go to the final full-resolution ``icp_register``
     (nn_backend, max_iterations, tolerance, mode, ...).
     """
-    if mesh is not None or fine_path == "partitioned":
-        raise NotImplementedError(
-            "multi-device paths (mesh, fine_path='partitioned') are not "
-            "ported yet (ROADMAP P15)")
-    if fine_path != "auto":
+    if fine_path not in ("auto", "partitioned"):
         raise ValueError(f"unknown fine_path {fine_path!r}")
     # Checked before any level runs, not by the first coarse level.
     if coarse_nn_backend not in ("auto", "bruteforce", "pallas",
@@ -178,6 +191,7 @@ def icp_register_multiscale(
     fine_backend = fine_kwargs.get("nn_backend", "auto")
     prepare = (
         len(strides) > 1
+        and fine_path != "partitioned"  # builds its own per-slab grids
         and dtype == torch.float32
         and (fine_backend == "pallas"
              or (fine_backend == "auto" and n * len(target) > 2**31))
@@ -201,16 +215,63 @@ def icp_register_multiscale(
             device_data = prepared_nn = prepared_nn2 = None
             if prepare:
                 device_data, prepared_nn, prepared_nn2 = _prepare_fine(
-                    source, target, fine_kwargs, dev)
+                    source, target, fine_kwargs, dev, mesh is None)
                 fine_kwargs.setdefault("nn_backend", "pallas")
             with scope("fine"):
-                res = _run_fine(source, target, T, dtype, dev, fine_kwargs,
-                                device_data, prepared_nn, prepared_nn2)
+                if fine_path == "partitioned":
+                    res = _run_partitioned(source, target, T, dtype, dev,
+                                           mesh, fine_kwargs)
+                elif mesh is not None:
+                    res = _run_sharded(source, target, T, dtype, mesh,
+                                       fine_kwargs, device_data, prepared_nn)
+                else:
+                    res = _run_fine(source, target, T, dtype, dev,
+                                    fine_kwargs, device_data, prepared_nn,
+                                    prepared_nn2)
         levels.append((stride, res))
         T = res.transform
         if not res.success:
             break
     return MultiscaleResult(final=levels[-1][1], levels=levels)
+
+
+def _run_partitioned(source, target, T, dtype, dev, mesh, fine_kwargs):
+    """The fine level with the target split over ``mesh`` (one rank on
+    ``dev`` when None); ``nn_backend`` picks the local search."""
+    from iterativeclosestpoint_tpu_torch.parallel.partition import (
+        icp_register_partitioned,
+        partitioned_kwargs,
+    )
+
+    return icp_register_partitioned(source, target, mesh=mesh, dtype=dtype,
+                                    initial_transform=T, device=dev,
+                                    **partitioned_kwargs(fine_kwargs))
+
+
+def _run_sharded(source, target, T, dtype, mesh, fine_kwargs, device_data,
+                 prepared_nn):
+    """The fine level data-parallel over ``mesh``: from the prepared device
+    inputs (the source moved by ``T`` on its device, ``T`` composed into
+    the result as ``icp_register`` composes it), else from the host with
+    ``T`` as the initial transform."""
+    from iterativeclosestpoint_tpu_torch.parallel.sharded import (
+        compose_initial,
+        icp_register_sharded,
+        rebase_on_device,
+    )
+
+    if device_data is None:
+        return icp_register_sharded(source, target, mesh=mesh, dtype=dtype,
+                                    initial_transform=T, **fine_kwargs)
+    fk = dict(fine_kwargs)
+    if T is not None:
+        device_data = rebase_on_device(T, device_data, dtype)
+        for key in ("progress_callback", "segment_callback"):
+            fk[key] = _compose_callback(fk.get(key), T)
+    res = icp_register_sharded(source, target, mesh=mesh, dtype=dtype,
+                               device_data=device_data,
+                               prepared_nn=prepared_nn, **fk)
+    return res if T is None else compose_initial(res, T)
 
 
 # Stage-1 length of the two-stage boosted fine level: enough plane

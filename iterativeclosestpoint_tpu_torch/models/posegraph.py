@@ -198,7 +198,7 @@ def optimize_pose_graph(
 
 def _gn_loop(max_iterations, poses, ii, jj, Zi, wj, k, damping, tolerance,
              robust="none"):
-    dtype, dev = Zi.dtype, Zi.device
+    dtype = Zi.dtype
     it_done = 0
     converged = False
     res_rmse = float("inf")
@@ -231,33 +231,47 @@ def _gn_loop(max_iterations, poses, ii, jj, Zi, wj, k, damping, tolerance,
                 w_rob = (1.0 - u * u) ** 2
             wj_eff = wj * torch.clamp(w_rob, min=1e-12)
 
-        # 6×6 normal-equation blocks per edge, summed into H (6k × 6k)
-        # and b (6k) through the incidence matrices.
-        Hii = torch.einsum("eri,erj->eij", J_i, J_i)
-        Hij = torch.einsum("eri,erj->eij", J_i, J_j)
-        Hjj = torch.einsum("eri,erj->eij", J_j, J_j)
-        gi = torch.einsum("eri,er->ei", J_i, r)
-        gj = torch.einsum("eri,er->ei", J_j, r)
-        H = (torch.einsum("ea,eb,eij->aibj", P_i, P_i, Hii)
-             + torch.einsum("ea,eb,eij->aibj", P_i, P_j, Hij)
-             + torch.einsum("ea,eb,eji->aibj", P_j, P_i, Hij)
-             + torch.einsum("ea,eb,eij->aibj", P_j, P_j, Hjj)
-             ).reshape(6 * k, 6 * k)
-        b = (P_i.T @ gi + P_j.T @ gj).reshape(6 * k)
-
-        # Gauge: drop pose 0's variables; LM-style damping for rank safety.
-        n_var = 6 * k
-        Hf = H[6:, 6:] + damping * torch.eye(n_var - 6, dtype=dtype,
-                                             device=dev)
-        delta, _ = torch.linalg.solve_ex(Hf, -b[6:])
-        step = torch.cat([torch.zeros(6, dtype=dtype, device=dev),
-                          delta]).reshape(k, 6)
-        poses = poses @ torch.func.vmap(se3_exp)(step)
+        H, b = normal_equations(r, J_i, J_j, P_i, P_j)
+        poses, delta = gn_step(poses, H, b, damping)
         it_done = it + 1
         if float(delta.abs().max()) < tolerance:  # host read
             converged = True
             break
     return res_rmse, it_done, converged, poses
+
+
+def normal_equations(r, J_i, J_j, P_i, P_j):
+    """The edges' 6×6 normal-equation blocks summed into H (6k × 6k) and
+    b (6k) through the (E, k) incidence matrices ``P_i``, ``P_j``: a
+    dense product, the same bits on every run."""
+    k = P_i.shape[1]
+    Hii = torch.einsum("eri,erj->eij", J_i, J_i)
+    Hij = torch.einsum("eri,erj->eij", J_i, J_j)
+    Hjj = torch.einsum("eri,erj->eij", J_j, J_j)
+    gi = torch.einsum("eri,er->ei", J_i, r)
+    gj = torch.einsum("eri,er->ei", J_j, r)
+    H = (torch.einsum("ea,eb,eij->aibj", P_i, P_i, Hii)
+         + torch.einsum("ea,eb,eij->aibj", P_i, P_j, Hij)
+         + torch.einsum("ea,eb,eji->aibj", P_j, P_i, Hij)
+         + torch.einsum("ea,eb,eij->aibj", P_j, P_j, Hjj)
+         ).reshape(6 * k, 6 * k)
+    b = (P_i.T @ gi + P_j.T @ gj).reshape(6 * k)
+    return H, b
+
+
+def gn_step(poses, H, b, damping):
+    """One gauge-fixed, damped GN update of the (k, 4, 4) ``poses``: pose
+    0's variables are dropped, the rest solved and applied on the right.
+    Returns (poses, delta)."""
+    dtype, dev = H.dtype, H.device
+    k = poses.shape[0]
+    # Gauge: drop pose 0's variables; LM-style damping for rank safety.
+    n_var = 6 * k
+    Hf = H[6:, 6:] + damping * torch.eye(n_var - 6, dtype=dtype, device=dev)
+    delta, _ = torch.linalg.solve_ex(Hf, -b[6:])
+    step = torch.cat([torch.zeros(6, dtype=dtype, device=dev),
+                      delta]).reshape(k, 6)
+    return poses @ torch.func.vmap(se3_exp)(step), delta
 
 
 def _overlap_crop(scan: np.ndarray, lo: np.ndarray, hi: np.ndarray,
@@ -300,13 +314,21 @@ def register_scans(
         the chain when nothing overlaps enough.
       multiscale: run each edge through the coarse-to-fine pipeline
         (``models/multiscale.py``).
-      mesh, partition: the multi-device paths, not ported yet (ROADMAP
-        P15); either raises ``NotImplementedError``.
+      mesh: a ``parallel.make_mesh`` mesh; edges then run data-parallel
+        over it (``parallel.icp_register_sharded``; multiscale edges
+        shard their fine level) and the pose graph is solved with its
+        edges split over the ranks (``parallel.optimize_pose_graph_sharded``).
+      partition: with ``mesh``, each edge runs with its TARGET split into
+        x-slabs over the mesh (``parallel.icp_register_partitioned``); the
+        pose-invariant per-target prep (``parallel.prepare_partition``)
+        is cached across the edges sharing a target, and ``stats`` gains
+        ``partitions_built``.
       graph_robust: "huber"/"tukey" IRLS-downweight gross-outlier edges in
         the pose-graph solve.
       reuse_device: upload each scan to the device once and reuse it (and
         its slab-sweep grids) across every edge it is the target of. With
-        "auto" it is on for the single-device f32 path whose backend is
+        "auto" it is on for the single-device (no ``mesh``) f32 path whose
+        backend is
         "auto" or "pallas", without multiscale, when the device is the
         card, the backend is "pallas", or some edge's all-pairs work
         exceeds 2³¹ (the point at which "auto" picks the sweep).
@@ -322,10 +344,13 @@ def register_scans(
     Edge runs default to ``return_registered=False`` (the merged cloud is
     recomputed from the solved poses).
     """
-    if mesh is not None or partition:
-        raise NotImplementedError(
-            "multi-device register_scans (mesh, partition) is not ported "
-            "yet (ROADMAP P15)")
+    if partition and multiscale:
+        raise ValueError(
+            "partition=True cannot combine with multiscale=True (edges run "
+            "the partitioned path, which has no ladder; pass a coarse "
+            "initial alignment through the edge kwargs instead)")
+    if partition and mesh is None:
+        raise ValueError("partition=True requires a mesh")
     dev = resolve_device(device)
     scans = [np.asarray(s, np.float64) for s in scans]
     if isinstance(edges, str):
@@ -342,6 +367,7 @@ def register_scans(
         reuse_device is True
         or (
             reuse_device == "auto"
+            and mesh is None
             and not multiscale
             and icp_kwargs.get("dtype", torch.float32) == torch.float32
             and backend in ("auto", "pallas")
@@ -421,6 +447,7 @@ def register_scans(
     measured = []
     weights = []
     edge_results = []
+    prepared_partitions: dict = {}
     staged = _stage(*edges[0]) if edges else None
     for idx, (i, j) in enumerate(edges):
         # ICP maps scan j (source) onto scan i (target): P_i = T · P_j.
@@ -445,7 +472,44 @@ def register_scans(
 
             with scope(f"edge{idx}"):
                 res = icp_register_multiscale(
-                    src_j, scans[i], device=dev, **icp_kwargs).final
+                    src_j, scans[i], mesh=mesh, device=dev,
+                    **icp_kwargs).final
+        elif partition:
+            from iterativeclosestpoint_tpu_torch.parallel.partition import (
+                icp_register_partitioned,
+                partitioned_kwargs,
+                prepare_partition,
+            )
+
+            kw = partitioned_kwargs(icp_kwargs)
+            # Partition options resolve at prep time (a prepared partition
+            # makes the registration ignore them).
+            pkw = {k: kw.pop(k) for k in ("halo", "local_search",
+                                          "partition_build", "fine_kernel")
+                   if k in kw}
+            if i not in prepared_partitions:
+                with stage("partition_prep"):
+                    prepared_partitions[i] = prepare_partition(
+                        scans[i], mesh=mesh,
+                        estimator=icp_kwargs.get("estimator", "point"),
+                        dtype=icp_kwargs.get("dtype", torch.float32),
+                        grid_resolution=icp_kwargs.get("grid_resolution"),
+                        n_queries_hint=len(src_j), **pkw)
+                if stats is not None:
+                    stats["partitions_built"] = (
+                        stats.get("partitions_built", 0) + 1)
+            with scope(f"edge{idx}"):
+                res = icp_register_partitioned(
+                    src_j, scans[i], mesh=mesh,
+                    prepared_partition=prepared_partitions[i], **kw)
+        elif mesh is not None:
+            from iterativeclosestpoint_tpu_torch.parallel.sharded import (
+                icp_register_sharded,
+            )
+
+            with scope(f"edge{idx}"):
+                res = icp_register_sharded(src_j, scans[i], mesh=mesh,
+                                           **icp_kwargs)
         else:
             with scope(f"edge{idx}"):
                 res = icp_register(src_j, scans[i], device=dev,
@@ -462,11 +526,21 @@ def register_scans(
 
     anchor = np.asarray(scans[0], np.float64).mean(axis=0)
     with stage("pose_graph"):
-        out = optimize_pose_graph(
-            measured, n_poses=len(scans), weights=weights,
-            max_iterations=pose_graph_iterations, anchor=anchor,
-            robust=graph_robust, device=dev,
-        )
+        if mesh is not None:
+            from iterativeclosestpoint_tpu_torch.parallel.posegraph import (
+                optimize_pose_graph_sharded,
+            )
+
+            out = optimize_pose_graph_sharded(
+                measured, n_poses=len(scans), weights=weights, mesh=mesh,
+                max_iterations=pose_graph_iterations, anchor=anchor,
+                robust=graph_robust)
+        else:
+            out = optimize_pose_graph(
+                measured, n_poses=len(scans), weights=weights,
+                max_iterations=pose_graph_iterations, anchor=anchor,
+                robust=graph_robust, device=dev,
+            )
     out.edge_results = edge_results
     out.disconnected = _disconnected_from(len(scans), measured)
     return out

@@ -10,6 +10,11 @@ interface under ``build/kernels/`` at the repository root, at first use:
 stale library. All nvcc processes start together and are waited for
 together. ptxas's register, shared-memory and spill report is kept beside
 each library as ``<name>-<hash>.log``. Nothing here runs at import time.
+
+Mesh ranks are threads of one process (``parallel/mesh.py``), so two ranks
+may reach a kernel first at the same moment: building and loading hold
+one lock, and each build writes a temporary file named after its process
+and thread before the atomic rename.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,6 +49,7 @@ _ARGTYPES = {
 }
 
 _LIBS: dict = {}
+_LOCK = threading.RLock()  # guards building and _LIBS
 
 
 def _nvcc() -> str:
@@ -71,6 +78,11 @@ def build_all() -> float:
     """Compile every source whose library is missing, all nvcc processes
     at once. Returns the seconds spent; raises with nvcc's output if any
     build fails."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -80,7 +92,8 @@ def build_all() -> float:
         if so.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tmp = so.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -107,13 +120,17 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel source ``name``, built on first use."""
     lib = _LIBS.get(name)
-    if lib is None:
-        so = BUILD_DIR / f"{_stem(name)}.so"
-        if not so.exists():
-            build_all()
-        lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            so = BUILD_DIR / f"{_stem(name)}.so"
+            if not so.exists():
+                _build_all()
+            lib = ctypes.CDLL(str(so))
+            fn = getattr(lib, name)
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib

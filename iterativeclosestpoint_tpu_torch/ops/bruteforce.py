@@ -44,14 +44,19 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def winner_d2(query: torch.Tensor, target: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+    """Each query's d² to its winner ``target[idx]``, in the kernels' order
+    ``((dx*dx + dy*dy) + dz*dz)``: the value the winner was chosen by."""
+    diff = query - target[idx]
+    return ((diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1])
+            + diff[:, 2] * diff[:, 2])
+
+
 def winner_dist(query: torch.Tensor, target: torch.Tensor,
                 idx: torch.Tensor) -> torch.Tensor:
     """Exact distance from each query to its winner ``target[idx]``."""
-    diff = query - target[idx]
-    return sqrt_rn(
-        (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1])
-        + diff[:, 2] * diff[:, 2]
-    )
+    return sqrt_rn(winner_d2(query, target, idx))
 
 
 def nn_bruteforce(

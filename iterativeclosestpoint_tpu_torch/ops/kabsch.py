@@ -13,17 +13,22 @@ from __future__ import annotations
 import torch
 
 
-def _weighted_moments(s, d, w):
+def _weighted_moments(s, d, w, ps=None):
     """Weighted centroids + cross-covariance (two-pass: centroids first).
 
+    ``ps`` sums each moment over a mesh's ranks (the JAX package's
+    ``_kabsch_global``, ``models/icp.py:251``); None on one device.
     Returns (centroid_src (3,), centroid_dst (3,), H (3,3), count ()).
     """
+    if ps is None:
+        def ps(x):
+            return x
     w = w.to(s.dtype)
-    count = w.sum()
+    count = ps(w.sum())
     inv = torch.where(count > 0, 1.0 / count, torch.zeros_like(count))
-    c_s = (w @ s) * inv
-    c_d = (w @ d) * inv
-    H = ((s - c_s) * w[:, None]).T @ (d - c_d)
+    c_s = ps(w @ s) * inv
+    c_d = ps(w @ d) * inv
+    H = ps(((s - c_s) * w[:, None]).T @ (d - c_d))
     return c_s, c_d, H, count
 
 
@@ -49,11 +54,12 @@ def rigid_from_covariance(H: torch.Tensor, c_src: torch.Tensor,
     return T
 
 
-def kabsch_masked(src, dst, mask) -> torch.Tensor:
+def kabsch_masked(src, dst, mask, ps=None) -> torch.Tensor:
     """Best rigid transform mapping masked ``src`` points onto ``dst``.
 
     ``mask`` is the (N,) 0/1 (or bool) inlier set; the reductions and the
-    (4,4) result are in ``src.dtype``.
+    (4,4) result are in ``src.dtype``. ``ps`` reduces the moments over a
+    mesh's ranks (each holding some of the rows).
     """
-    c_s, c_d, H, _ = _weighted_moments(src, dst, mask)
+    c_s, c_d, H, _ = _weighted_moments(src, dst, mask, ps)
     return rigid_from_covariance(H, c_s, c_d).to(src.dtype)

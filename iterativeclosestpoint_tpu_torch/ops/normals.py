@@ -13,8 +13,10 @@ The device build sums each cell's moments in 64-bit fixed point, so the
 sums do not depend on the order in which a scatter-add meets the points:
 two builds of the same cloud on the card give the same normals bit for
 bit (the JAX package's f32 scatter-add would not on CUDA, where it is
-atomic). Its ``mask_far`` option belongs to the partitioned target path
-(ROADMAP P15) and is left out.
+atomic). Its ``mask_far`` option served the partitioned target's
+fixed-length, far-padded slab buffers; the port's slabs are ragged (one
+tensor per rank, real rows only), so it is left out
+(``parallel/partition.py``).
 """
 
 from __future__ import annotations

@@ -8,11 +8,14 @@
 | K3 ``brute_nn`` | ``csrc/brute_nn.cu`` | ``_colsweep_kernel(first_tie=True)`` on a one-cell grid |
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel on the current stream or raises; each
+tensors it launches the kernel on the current stream of the tensors'
+card (a mesh rank's thread may hold tensors on another card than the
+process's current one) or raises; each
 launch adds one to ``LAUNCHES[name]`` and to ``LAUNCH_SHAPES[(name,
 shape)]``, the shape being (tiles, slabs, trange) for a sweep (slabs =
 12 and trange = zrange for the z-column sweep) and (queries, targets)
-for K3. The kernels allocate nothing: the wrappers
+for K3 (under a lock: mesh ranks launch from several threads). The
+kernels allocate nothing: the wrappers
 allocate outputs with ``torch.empty`` / ``torch.full``.
 
 Sweep output contract (K1, K2 and their plain version): (t, 8, 128) f32
@@ -39,6 +42,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -60,12 +64,20 @@ K3_CTA_SETUP_ROWS = 188
 
 LAUNCHES = {"colsweep_fused": 0, "colsweep": 0, "brute_nn": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
+_TALLY_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCH_SHAPES.clear()
+    with _TALLY_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        LAUNCH_SHAPES.clear()
+
+
+def _tally(name, shape) -> None:
+    with _TALLY_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCH_SHAPES[(name, shape)] += 1
 
 
 def _check(name, x, dtype, shape=None):
@@ -78,14 +90,17 @@ def _check(name, x, dtype, shape=None):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name, shape, *args):
+def _launch(name, shape, device, *args):
+    """Launch ``name`` on ``device``'s current stream, with ``device`` as
+    the current device for the launch."""
     fn = getattr(_build.library(name), name)
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, shape)] += 1
+    _tally(name, shape)
 
 
 def merge_best_plain(a, b):
@@ -226,15 +241,15 @@ def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
     stride = tgt_t.shape[1]
     shape = (t, slabs, trange)
     if fused:
-        _launch("colsweep_fused", shape, base.data_ptr(), slack.data_ptr(),
-                q.data_ptr(), tgt_t.data_ptr(), stride, t, slabs, trange,
-                out.data_ptr())
+        _launch("colsweep_fused", shape, q.device, base.data_ptr(),
+                slack.data_ptr(), q.data_ptr(), tgt_t.data_ptr(), stride, t,
+                slabs, trange, out.data_ptr())
     else:
         splits = sweep_splits(t, slabs, trange, q.device)
         # Per-split partials (d² bits, row, tie) for the merge launch.
         part = (torch.empty((3, t, splits, TILE_Q), dtype=torch.int32,
                             device=q.device) if splits > 1 else None)
-        _launch("colsweep", shape, base.data_ptr(), q.data_ptr(),
+        _launch("colsweep", shape, q.device, base.data_ptr(), q.data_ptr(),
                 tgt_t.data_ptr(), stride, t, slabs, trange, splits,
                 0 if part is None else part.data_ptr(), out.data_ptr())
     return out
@@ -277,8 +292,8 @@ def brute_keys(query, target, splits: int):
         raise ValueError("nn_brute: target rows must fit int32")
     splits = max(1, min(splits, m, MAX_GRID_Y))
     keys = torch.full((n,), -1, dtype=torch.int64, device=query.device)
-    _launch("brute_nn", (n, m), query.data_ptr(), n, target.data_ptr(), m,
-            splits, -(-m // splits), keys.data_ptr())
+    _launch("brute_nn", (n, m), query.device, query.data_ptr(), n,
+            target.data_ptr(), m, splits, -(-m // splits), keys.data_ptr())
     return keys
 
 

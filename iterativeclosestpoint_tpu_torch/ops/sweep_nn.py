@@ -360,6 +360,7 @@ def nn_colsweep_exact(
     brute_passes: int = 16,
     global_fallback: bool = True,
     fine: str = "sweep",
+    return_certified: bool = False,
 ):
     """Exact NN: fine sweep → coarse-grid repair → budgeted brute → global
     fallback.
@@ -380,7 +381,11 @@ def nn_colsweep_exact(
     the global fallback gather the winner's normal beside its coordinates
     (the sweeps read it from the grid's rows 3-5).
 
-    Returns (matched (N,3), normal (N,3), dist (N,)).
+    Returns (matched (N,3), normal (N,3), dist (N,)) and, with
+    ``return_certified``, a per-query mask of results proven exact (sweep
+    or coarse certificate, or a brute repair within budget; all rows with
+    ``global_fallback``). The partitioned target composes it with its
+    halo-margin certificate.
     """
     dev = query.device
     n_in = query.shape[0]
@@ -493,6 +498,17 @@ def nn_colsweep_exact(
 
     matched = m_t.reshape(n, 6)
     dist = d_t.reshape(n)
+    if return_certified:
+        if global_fallback:
+            cert = torch.ones((n,), dtype=torch.bool, device=dev)
+        else:
+            # The brute stages fix the first kmax bad tiles of the
+            # bad-first order.
+            rank = torch.cumsum(bad_tile2.to(torch.int32), dim=0) - 1
+            fixed = bad_tile2 & (rank < kmax)
+            cert = (c_t | fixed[:, None]).reshape(n)
+        return (matched[:n_in, 0:3], matched[:n_in, 3:6], dist[:n_in],
+                cert[:n_in])
     return matched[:n_in, 0:3], matched[:n_in, 3:6], dist[:n_in]
 
 

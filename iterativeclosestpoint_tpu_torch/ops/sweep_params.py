@@ -2,7 +2,9 @@
 
 Copies of the estimators in the JAX package's ``ops/pallas_nn.py``:
 ``auto_trange`` :207, ``auto_coarse_trange`` :301, ``auto_zrange`` :336,
-``estimate_grid_params`` :693 and ``use_fused_sweep`` :998. Both packages
+``estimate_grid_params`` :693, ``resolve_slab_grid_params`` :604 (the
+partitioned target's shared per-slab parameters) and ``use_fused_sweep``
+:998. Both packages
 must pick the same resolution R, slab row budget ``trange`` and coarse
 budget ``coarse_trange`` from the same cloud, so the arithmetic, the
 ladders and the caps are kept exactly, including ``_COARSE_TRANGE_CAP``:
@@ -11,9 +13,7 @@ the same budgets.
 
 Not copied: ``fused_sweep_chunk`` (:1010) sizes the TPU kernel's VMEM
 chunks, which the CUDA kernels do not have; ``_ranges`` (:185) serves only
-the host query layout, which the port builds on the device; and
-``resolve_slab_grid_params`` (:604) serves the multi-device paths and
-comes with them (ROADMAP P15).
+the host query layout, which the port builds on the device.
 """
 
 from __future__ import annotations
@@ -201,6 +201,73 @@ def estimate_grid_params(target_local, resolution=None, model=None):
         if boosted:
             tr = auto_trange(target_local, R)
     return (R, tr, auto_coarse_trange(target_local, R), base, zrange)
+
+
+def resolve_slab_grid_params(
+    slab_samples,
+    *,
+    n_dev: int,
+    n_queries: int,
+    grid_resolution: "int | None" = None,
+    fine_kernel: str = "auto",
+    populations=None,
+):
+    """Shared grid parameters of the partitioned target's slabs.
+
+    Every rank's slab grid uses one (resolution, trange, coarse_trange,
+    fine kernel): per-slab estimates combined by max, trange quantized up
+    onto the ladder, the z-column cost-model gate at the unboosted base
+    (with the per-rank (x, y)-layout padding), and the surface boost only
+    when EVERY slab's own occupancy at the boosted R clears the gate.
+    ``populations`` carries true per-slab counts when ``slab_samples``
+    are strided samples. Returns dict(resolution, trange, coarse_trange,
+    fine_kernel, normals_resolution).
+    """
+    pops = (populations if populations is not None
+            else [None] * len(slab_samples))
+    models = None
+    if grid_resolution:
+        resolution = normals_resolution = grid_resolution
+    else:
+        models = [_occupancy_model(np.asarray(s)) for s in slab_samples]
+        resolution = normals_resolution = max(
+            auto_resolution_data(s, population=p, model=m)
+            for s, p, m in zip(slab_samples, pops, models)
+        )
+
+    def _trange_at(r):
+        tr = max(auto_trange(s, r, population=p)
+                 for s, p in zip(slab_samples, pops))
+        for step in _TRANGE_LADDER:
+            if tr <= step:
+                return step
+        return tr
+
+    trange = _trange_at(resolution)
+    out_kernel = "sweep"
+    # The z-column gate at the UNBOOSTED base parameters.
+    if fine_kernel == "zcol" or (
+        fine_kernel == "auto" and trange >= 2048 and resolution <= 128
+    ):
+        zr = max(auto_zrange(s, resolution, population=p)
+                 for s, p in zip(slab_samples, pops))
+        q_per_dev = max(n_queries // max(n_dev, 1), 1)
+        pad = 1.0 + (resolution**2 * (128 - 1) / 2) / q_per_dev
+        if fine_kernel == "zcol" or 12 * zr * pad < 0.7 * 4 * trange:
+            out_kernel = "zcol"
+            trange = zr  # the exact chain reads trange as the z budget
+    if out_kernel == "sweep" and not grid_resolution:
+        if all(surface_boost_ok(s, 2 * resolution, population=p, model=m)
+               for s, p, m in zip(slab_samples, pops, models)):
+            resolution = 2 * resolution
+            trange = _trange_at(resolution)
+    coarse_tr = max(auto_coarse_trange(s, resolution, population=p)
+                    for s, p in zip(slab_samples, pops))
+    return dict(
+        resolution=int(resolution), trange=int(trange),
+        coarse_trange=int(coarse_tr), fine_kernel=out_kernel,
+        normals_resolution=int(normals_resolution),
+    )
 
 
 def use_fused_sweep(slabs: int, trange: int) -> bool:

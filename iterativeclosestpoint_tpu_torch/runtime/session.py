@@ -13,8 +13,9 @@ operators release the GIL) and returns the thread.
 Every run goes to ``device`` (None: the card, raising without CUDA;
 "cpu": the kernels' plain versions). The host I/O is timed as the stages
 ``load_source``, ``load_target``, ``write_las``, ``report`` and ``html``
-(runtime/timing.py: no-ops unless a collector is active). The multi-device modes
-(``parallel="dp"`` / ``"partition"``) are not ported yet (ROADMAP P15).
+(runtime/timing.py: no-ops unless a collector is active). The multi-device
+modes (``parallel="dp"`` / ``"partition"``) run over a mesh of one rank per
+visible card (``parallel/``).
 """
 
 from __future__ import annotations
@@ -138,18 +139,17 @@ class RegistrationSession:
         far and a 3 s auto-refresh; the caller's final export replaces it
         without the refresh.
 
-        ``parallel``: "none" (one device). "dp" and "partition" are the
-        JAX package's multi-device modes, not ported yet (ROADMAP P15).
+        ``parallel``: "none" (one device), "dp" (the source split over a
+        mesh of one rank per visible card, ``parallel.sharded``) or
+        "partition" (the target split into x-slabs over that mesh,
+        ``parallel.partition``); with ``device="cpu"`` the mesh is one CPU
+        rank.
         ``overrides`` go to the registration call as keyword arguments
         (e.g. ``resume_carry``, ``device``)."""
         if self.source is None or self.target is None:
             raise RuntimeError("load source and target clouds first")
         if parallel not in ("none", "dp", "partition"):
             raise ValueError(f"unknown parallel mode {parallel!r}")
-        if parallel != "none":
-            raise NotImplementedError(
-                f"parallel={parallel!r} (multiple devices) is not ported "
-                "yet (ROADMAP P15)")
         if self._running:
             raise RuntimeError("a registration is already running")
         self._running = True
@@ -221,10 +221,28 @@ class RegistrationSession:
             self.metrics.log("========== starting ICP registration ==========")
             self.metrics.log(f"source: {len(self.source)} points")
             self.metrics.log(f"target: {len(self.target)} points")
+            mesh = None
+            if parallel != "none":
+                from iterativeclosestpoint_tpu_torch.parallel.mesh import (
+                    make_mesh,
+                )
+
+                mesh = make_mesh(device=kwargs.get("device"))
+                self.metrics.log(
+                    f"parallel={parallel}: {mesh.size}-rank mesh")
             t0 = time.perf_counter()
-            if multiscale:
+            if multiscale or mesh is not None:
+                # One entry for every mesh run: a single level (stride 1)
+                # unless ``multiscale``; the fine level runs over the mesh.
+                ms_kw = dict(kwargs)
+                if mesh is not None:
+                    ms_kw["mesh"] = mesh
+                if parallel == "partition":
+                    ms_kw["fine_path"] = "partitioned"
+                if not multiscale:
+                    ms_kw["strides"] = (1,)
                 result = icp_register_multiscale(
-                    self.source, self.target, **kwargs).final
+                    self.source, self.target, **ms_kw).final
             else:
                 result = icp_register(self.source, self.target, **kwargs)
             dt = time.perf_counter() - t0

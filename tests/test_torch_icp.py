@@ -256,7 +256,9 @@ def _volume_box():
 
 
 def test_unported_multiscale_and_regime_raise():
-    """Multi-device options raise P15. The kernel-regime gate no longer
+    """The multi-device options run (a 2-rank CPU mesh, data-parallel
+    and partitioned, within 1e-9 m of the single-device run in f64); an
+    unknown ``fine_path`` raises. The kernel-regime gate no longer
     raises: on a volume cloud both factories pick the z-column sweep with
     the same (R, zrange) and the same anisotropic z-grid, and a terrain
     cloud of the same size still gets the slab sweep."""
@@ -269,9 +271,23 @@ def test_unported_multiscale_and_regime_raise():
         make_pallas_nn_device,
     )
 
-    src, tgt, _ = make_registration_pair(n=300, seed=1)
-    with pytest.raises(NotImplementedError, match="P15"):
-        icp_register_multiscale(src, tgt, device="cpu", mesh=object())
+    from iterativeclosestpoint_tpu_torch.parallel import make_mesh
+
+    # A noisy pair: on a noise-free one the run ends at ~1e-14 RMSE,
+    # where the 1.1x divergence stop fires on last-bit differences of the
+    # rank sums (the JAX tests note the same).
+    src, tgt, _ = make_registration_pair(n=400, seed=1, noise_sigma=0.02)
+    kw = dict(device="cpu", dtype=torch.float64, strides=(4, 1),
+              max_iterations=10)
+    one = icp_register_multiscale(src, tgt, **kw)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    for fp in ("auto", "partitioned"):
+        two = icp_register_multiscale(src, tgt, mesh=mesh, fine_path=fp,
+                                      **kw)
+        assert two.final.iterations == one.final.iterations
+        assert _reg_err(two.transform, one.transform, src) < 1e-9
+    with pytest.raises(ValueError, match="fine_path"):
+        icp_register_multiscale(src, tgt, mesh=mesh, fine_path="ring", **kw)
     vol = _volume_box()
     j_fn, (j_grid, j_coarse, _), j_R = jax_make(vol)
     t_fn, (t_grid, t_coarse, _), t_R = make_pallas_nn_device(vol, device="cpu")

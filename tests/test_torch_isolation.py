@@ -31,7 +31,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "    'utils.config', 'runtime.native', 'runtime.checkpoint',\n"
         "    'runtime.metrics', 'runtime.viz', 'runtime.htmlviz',\n"
         "    'runtime.session', 'runtime.profiling', 'runtime.smoke',\n"
-        "    'models.posegraph', 'ops.hashgrid', 'ops.cellblock'}\n"
+        "    'models.posegraph', 'ops.hashgrid', 'ops.cellblock',\n"
+        "    'parallel', 'parallel.mesh', 'parallel.sharded',\n"
+        "    'parallel.partition', 'parallel.posegraph'}\n"
         "missing = {e for e in expected if p.__name__ + '.' + e not in names}\n"
         "assert not missing, missing\n"
         "for name in names:\n"

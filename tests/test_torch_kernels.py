@@ -366,3 +366,107 @@ def test_pose_graph_on_card_matches_cpu(card):
     np.testing.assert_array_equal(a.poses, b.poses)
     np.testing.assert_allclose(a.poses, c.poses, atol=1e-12)
     assert a.iterations == c.iterations
+
+
+def test_four_mesh_ranks_on_one_card(card):
+    """Four mesh ranks on one card (threads launching the kernels on the
+    card's stream): the data-parallel and the partitioned paths launch K1
+    from the rank threads and give the 4-rank CPU result: the same
+    iterations and stop code, within 1e-4 m (f32, other summation order
+    on the card). Plane mode: it converges in a few iterations, where
+    point mode slides on this terrain and two f32 orders drift apart
+    (ROADMAP §3)."""
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        icp_register_partitioned,
+        icp_register_sharded,
+        make_mesh,
+    )
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    src, tgt, _ = make_registration_pair(n=20_000, seed=7, noise_sigma=0.02,
+                                         kind="terrain")
+    kw = dict(max_iterations=8, tolerance=0.0, return_registered=False,
+              estimator="plane")
+    for fn, extra in ((icp_register_sharded, dict(nn_backend="pallas")),
+                      (icp_register_partitioned,
+                       dict(local_search="pallas", halo=0.5))):
+        sk.reset_launches()
+        on_card = fn(src, tgt, mesh=make_mesh(devices=["cuda:0"] * 4),
+                     **kw, **extra)
+        launches = dict(sk.LAUNCHES)
+        on_cpu = fn(src, tgt, mesh=make_mesh(devices=["cpu"] * 4), **kw,
+                    **extra)
+        assert launches["colsweep_fused"] > 0, (fn.__name__, launches)
+        assert (on_card.iterations, on_card.stop_reason) == (
+            on_cpu.iterations, on_cpu.stop_reason)
+        gap = np.abs((src @ on_card.transform[:3, :3].T
+                      + on_card.transform[:3, 3])
+                     - (src @ on_cpu.transform[:3, :3].T
+                        + on_cpu.transform[:3, 3])).max()
+        assert gap < 1e-4, (fn.__name__, gap)
+
+
+def test_mesh_across_cards(card):
+    """One rank per visible card (needs two or more; skips otherwise):
+    the collectives move tensors between cards (a rank's fold runs on its
+    own card, every rank holding the same bits), the cross-rank tie
+    returns B exactly, and the data-parallel and partitioned paths give
+    the 1-rank result's iterations and stop code within 1e-4 m."""
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        icp_register_partitioned,
+        icp_register_sharded,
+        make_mesh,
+    )
+    from iterativeclosestpoint_tpu_torch.parallel import partition as tpart
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    mesh = make_mesh()
+    sums = mesh.run(lambda c: c.psum(
+        torch.full((3,), 0.1 * (c.rank + 1), device=c.device)))
+    assert all(s.device == d for s, d in zip(sums, mesh.devices))
+    assert len({tuple(s.cpu().tolist()) for s in sums}) == 1
+
+    base = np.random.default_rng(7).uniform(-50, 50, (1000, 3))
+    B = np.array([[+1.0, 0.0, 200.0]])
+    A = np.array([[-1.0, 0.0, 200.0]])
+    two = make_mesh(n_devices=2)
+    part = tpart.build_partition(np.concatenate([base, B, A]), two.devices,
+                                 1e-3)
+
+    def tie(comm):
+        r = comm.rank
+        state = (part.halo_pts[r], part.halo_idx[r], None,
+                 torch.tensor(part.x_lo[r], dtype=torch.float32,
+                              device=comm.device),
+                 torch.tensor(part.x_hi[r], dtype=torch.float32,
+                              device=comm.device), None, None)
+        nn = tpart._partitioned_nn(comm, state, local_search="brute",
+                                   with_normals=False, repair_budget=64,
+                                   repair_passes=2)
+        return nn(torch.tensor([[0.0, 0.0, 200.0]], device=comm.device),
+                  None, None)[0].cpu()
+
+    for m in two.run(tie):
+        np.testing.assert_array_equal(m.numpy(), B.astype(np.float32))
+
+    src, tgt, _ = make_registration_pair(n=20_000, seed=7, noise_sigma=0.02,
+                                         kind="terrain")
+    kw = dict(max_iterations=8, tolerance=0.0, return_registered=False,
+              estimator="plane")
+    for fn, extra in ((icp_register_sharded, dict(nn_backend="pallas")),
+                      (icp_register_partitioned,
+                       dict(local_search="pallas", halo=0.5))):
+        many = fn(src, tgt, mesh=mesh, **kw, **extra)
+        one = fn(src, tgt, mesh=make_mesh(n_devices=1), **kw, **extra)
+        assert (many.iterations, many.stop_reason) == (one.iterations,
+                                                       one.stop_reason)
+        gap = np.abs((src @ many.transform[:3, :3].T + many.transform[:3, 3])
+                     - (src @ one.transform[:3, :3].T
+                        + one.transform[:3, 3])).max()
+        assert gap < 1e-4, (fn.__name__, gap)

@@ -103,7 +103,26 @@ def test_register_scans_failed_edges_surface_as_disconnected():
     assert out.disconnected == [1]
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(partition=True)])
+@pytest.mark.parametrize("kw", [dict(mesh=2), dict(partition=True)])
 def test_register_scans_multi_device_raises(kw):
-    with pytest.raises(NotImplementedError, match="P15"):
-        tpg.register_scans([np.zeros((4, 3))] * 2, device="cpu", **kw)
+    """``mesh`` runs the edges and the pose graph over a 2-rank CPU mesh
+    (within 1e-9 m of one device, f64); ``partition`` without a mesh
+    raises, as in the JAX package."""
+    from iterativeclosestpoint_tpu_torch.parallel import make_mesh
+
+    if "partition" in kw:
+        with pytest.raises(ValueError, match="requires a mesh"):
+            tpg.register_scans([np.zeros((4, 3))] * 2, device="cpu", **kw)
+        return
+    base = make_cloud(1500, seed=5)
+    T = random_rigid_transform(seed=6, max_yaw_deg=2.0, max_txy=0.3)
+    scans = [base, apply_transform_np(np.linalg.inv(T), base)]
+    run = dict(dtype=F64, nn_backend="bruteforce", max_iterations=15,
+               device="cpu")
+    one = tpg.register_scans(scans, **run)
+    two = tpg.register_scans(
+        scans, mesh=make_mesh(devices=["cpu"] * kw["mesh"]), **run)
+    assert [r.iterations for r in two.edge_results] == [
+        r.iterations for r in one.edge_results]
+    assert two.iterations == one.iterations
+    assert _reg_err(two.poses[1], one.poses[1], base) < 1e-9

@@ -205,8 +205,20 @@ def test_run_async_and_errors(tmp_path):
     th.join(120)
     assert not sess.is_running() and sess.error is None
     assert sess.result.iterations >= 1
-    with pytest.raises(NotImplementedError, match="P15"):
-        sess.run(parallel="dp")
+    # The multi-device modes run, on a 1-rank CPU mesh here: "dp" gives
+    # the single-device result bit for bit, "partition" (x-sorted source,
+    # other summation order) within 1e-4 m.
+    cfg = ICPConfig(max_iterations=5, nn_backend="bruteforce")
+    runs = {}
+    for mode in ("none", "dp", "partition"):
+        sess.load_source(sp)
+        runs[mode] = sess.run(config=cfg, parallel=mode)
+    src = read_las(sp)[0]
+    np.testing.assert_array_equal(runs["dp"].transform,
+                                  runs["none"].transform)
+    assert runs["partition"].iterations == runs["none"].iterations
+    assert _reg_err(runs["partition"].transform, runs["none"].transform,
+                    src) < 1e-4
     with pytest.raises(ValueError, match="parallel"):
         sess.run(parallel="mesh")
     with pytest.raises(RuntimeError, match="load source"):
@@ -305,16 +317,50 @@ def test_cli_end_to_end(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["graph", "a.las", "b.las", "--loop", "--parallel", "dp"], "P15"),
     (["bench"], "P9"),
-    (["run", "s.las", "t.las", "--parallel", "dp"], "P15"),
-    (["run", "s.las", "t.las", "--parallel", "partition"], "P15"),
     (["run", "s.las", "t.las", "--parallel", "partition", "--ingest"],
-     "P15"),
+     "P15b"),
 ])
 def test_cli_unported_exit_nonzero(capsys, argv, item):
     assert cli_main(argv) != 0
     assert f"ROADMAP {item}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["graph", "--loop", "--parallel", "dp"],
+    ["run", "--parallel", "dp"],
+    ["run", "--parallel", "partition"],
+])
+def test_cli_parallel_runs(tmp_path, capsys, argv):
+    """``--parallel dp|partition`` runs over a 1-rank CPU mesh (one rank
+    per visible card; ``--device cpu`` gives one CPU rank): ``run`` gives
+    the session's transform for the same mode bit for bit, ``graph`` the
+    edge-sharded pose graph within 1e-9 of the single-device solve."""
+    sp, tp = _pair_files(tmp_path)
+    verb, *flags = argv
+    mode = flags[-1]
+    if verb == "graph":
+        out = tmp_path / "poses.json"
+        assert _cli("graph", sp, tp, *flags, "--max-iterations", 5,
+                    "--poses", out) == 0
+        assert f"parallel={mode}: 1-rank mesh" in capsys.readouterr().out
+        assert _cli("graph", sp, tp, "--loop", "--max-iterations", 5,
+                    "--poses", tmp_path / "one.json") == 0
+        got = np.asarray(json.loads(out.read_text())["poses"])
+        ref = np.asarray(json.loads(
+            (tmp_path / "one.json").read_text())["poses"])
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)
+        return
+    rc = _cli("run", sp, tp, *flags, "--max-iterations", 5,
+              "--nn-backend", "bruteforce", "-o", tmp_path / "reg.las")
+    assert rc == 0
+    assert f"parallel={mode}" in capsys.readouterr().out
+    doc = json.loads((tmp_path / "reg_transform.json").read_text())
+    sess, _ = _sessions(sp, tp)
+    ref = sess.run(config=ICPConfig(max_iterations=5,
+                                    nn_backend="bruteforce"), parallel=mode)
+    np.testing.assert_array_equal(np.asarray(doc["transform"]),
+                                  ref.transform)
 
 
 def test_trace_writes_on_cpu(tmp_path):
