@@ -164,24 +164,67 @@ Phases, one or more lines each:
    ``optimize_pose_graph_sharded`` on 4 ranks within 1e-9 of one device
    (f64); (e) ``icp-torch run --multiscale --parallel dp|partition`` on a
    1M LAS pair (the CLI's mesh: one rank per visible card) equals the
-   library call bit for bit, ``graph --parallel dp`` equals
-   ``register_scans(mesh=)`` bit for bit, and ``run --ingest`` exits
-   naming P15b;
-10. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
+   library call bit for bit, and ``graph --parallel dp`` equals
+   ``register_scans(mesh=)`` bit for bit;
+10. the mesh over several processes (``init_multihost``): worker
+   processes are this script started again with ``--worker``, two of
+   them sharing ``cuda:0`` over gloo, one rank each; a worker that exits
+   non-zero fails the phase. (a) dp: the headline through
+   ``icp_register_multiscale(mesh=)`` (the fine level takes the host path
+   on a multi-process mesh): bit-equal to a 1-process 2-rank mesh on the
+   card from the same coarse pose, and the iterations and stop code of
+   one device on that path within 1e-4 m (the gap to one device's
+   multiscale run printed beside it); wall, fine ms/iteration, bytes per
+   iteration per
+   rank and launches per process; (b) the streamed ingest at 10M: phase
+   4d's pair written as LAS, then in each process ``sample_points``,
+   walls, ``estimate_partition_grid_params``, ``coarse_carry_from_files``,
+   ``load_las_partitioned_target``/``_source`` (batches of 1M rows) and
+   ``icp_register_partitioned(partition_state=, source_global=, offset=,
+   grid_params=, estimator="plane", max_iterations=20, tolerance=0.0)``
+   from the coarse carry, with a repair budget (8,192 × 8) that covers
+   every row the pose carries across a wall (the most sent in one
+   iteration is checked against it): each process keeps part of each
+   file, bit-equal
+   to the same sequence on a 1-process 2-rank mesh; on a seeded 200,000-
+   row sample of the last matches each returned point is a target point
+   and a nearest neighbour in f64 (≤ 1e-9 m) against cKDTree, and (rows
+   the repair did not touch) each normal is its winner's slab normal;
+   ``icp-torch run --parallel partition --ingest`` on the files (one rank
+   in this process) equals the library sequence on one rank bit for bit;
+   prep, ingest and loop times; (c) a segmented run (12 iterations in
+   segments of 3, f32 pallas, n=1001) with a rolling checkpoint, where
+   process 1 SIGKILLs itself at iteration 6: the survivor fails within
+   30 s naming the lost process, and two fresh processes resume to the
+   uninterrupted tail and transform bit for bit. Every shape the dp and
+   ingest processes launched is held against plain;
+11. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
    the main paths (headline, volume, plane, plane_10m, product, graph,
-   backends, and phase 9's mesh_dp, mesh_partition, mesh_repair,
-   mesh_graph, mesh_product), error, times, data-sheet bound and issue
-   floor at its most launched shape (K3: the most launched with a
-   library time), and every measured shape under ``shapes`` with its
-   launches per path;
-11. the last line: ``{"ok": true, "device": {...}}``.
+   backends, phase 9's mesh_dp, mesh_partition, mesh_repair, mesh_graph,
+   mesh_product, and phase 10's mp_dp and mp_ingest, each summed over
+   its processes), error, times, data-sheet bound and issue floor at its
+   most launched shape (K3: the most launched with a library time), and
+   every measured shape under ``shapes`` with its launches per path;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --across-cards``, on a host with several cards,
 runs phases 1 and 2, then phase 9a and 9b's runs on ``make_mesh()`` (one
-rank per visible card, what ``icp-torch --parallel`` builds) against one
-device and a 1-rank mesh: best wall of 3 and the synced breakdown (9a);
-prep, wall and fine ms/iteration (9b); the same iterations and stop code
-within 1e-4 m. It holds no kernel and prints no ``kernels`` line.
+rank per visible card, what ``icp-torch --parallel`` builds), and on a
+mesh of one process per card over NCCL (``init_multihost``), against one
+device and a 1-rank mesh: best wall of 3 and the fine loop's
+ms/iteration (9a); prep, wall and fine ms/iteration (9b); the same
+iterations and stop code within 1e-4 m. A process mesh runs 9a's fine
+level on the host path (the coarse pose applied on the host in f64), so
+its references are that path's: one device (the gate) and the thread
+mesh over the cards, bit for bit. It holds no kernel and prints no
+``kernels`` line.
+
+``python3 chip_smoke.py --library-times`` runs phases 1 and 2, then times
+the library yardstick (chunked ``torch.cdist`` + argmin, one call each)
+at the K3 shapes the default run leaves untimed (past 1e9 pairs): phase
+9b's slabs, 512 and 4,096 queries against 2,700,718 rows and 32,768
+against 2,500,047, and phase 10b's, 512, 4,096 and 16,384 against
+5,205,074 (about four minutes).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without CUDA it exits with code 1 before anything else.
@@ -259,6 +302,31 @@ PART_REPAIR_HELD = 4096  # repaired rows held against the plain brute force
 LIBRARY_PAIRS_MAX = 1e9
 REPAIR_ALL_N = 20_000   # phase 9c: queries sent through the repair
 REPAIR_ALL_LIFT = 500.0  # m: past every slab margin (a 100 m terrain)
+# phase 10: processes of the multi-process mesh, all on the one card over
+# gloo (NCCL refuses two ranks of one communicator on one GPU)
+MP_PROCESSES = 2
+MP_TIMEOUT_S = 300      # a phase-10 process group's wall limit
+MP_HEARTBEAT_S = 60     # the process group's call bound
+MP_BATCH = 1_000_000    # phase 10b: the streamed loaders' batch rows
+# phase 10b: the source is sharded by the target's walls in the file's
+# frame, so the rows the pose carries across a wall (~10,000 of a rank's
+# 5M) go through the collective repair every iteration; a budget that
+# covers them all (the default 1,024 × 4 leaves most approximate, as in
+# JAX)
+MP_REPAIR = dict(repair_budget=PART_REPAIR_BUDGET,
+                 repair_passes=PART_REPAIR_PASSES)
+# phase 10c: tests/_torch_failure_worker.py's run, f32 on the card
+MP_FAIL = dict(n=1001, seed=50, noise_sigma=0.02)
+MP_FAIL_KW = dict(nn_backend="pallas", max_iterations=12,
+                  segment_iterations=3, return_registered=False)
+MP_KILL_AT = 6          # the iteration at whose boundary process 1 dies
+MP_DETECT_S = 30.0      # the survivor's bound from the kill to its error
+CARDS_TIMEOUT_S = 600   # --across-cards: a process group's wall limit
+# --library-times: K3's shapes past LIBRARY_PAIRS_MAX: phase 9b's slabs (4
+# ranks, halo 2% and 1 mm) and phase 10b's (2 ranks; the other slab holds
+# 5,194,278 rows)
+LIBRARY_SHAPES = ((512, 2_700_718), (4096, 2_700_718), (32_768, 2_500_047),
+                  (512, 5_205_074), (4096, 5_205_074), (16_384, 5_205_074))
 DEVICE = "cuda"
 
 
@@ -589,12 +657,14 @@ def _stage_tiles(t):
 
 
 def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
-                     issue_rate, full=True, library=True):
+                     issue_rate, full=True, library=True, fine_tiles=()):
     """Every kernel one slab-sweep factory's nn_fn can launch, on its
     grids: the fine sweep over a whole layout of the target + N(0, 0.02)
-    (K1, or K2's slot-wise form where the trange sends it there), K2 on
-    the coarse repair grid at each stage size, and K3 at the brute tiers
-    (512 and 4096 queries against the whole target)."""
+    (K1, or K2's slot-wise form where the trange sends it there, also on
+    the first tiles of that layout for each launched K2 shape in
+    ``fine_tiles`` on this grid: a query layout of another tile count),
+    K2 on the coarse repair grid at each stage size, and K3 at the brute
+    tiers (512 and 4096 queries against the whole target)."""
     from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
         grouped_tile_order_device,
     )
@@ -635,7 +705,10 @@ def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
         _sweep_k1(results, win, grid.tgt_t, 4, trange, f"{tpu}:1165",
                   issue_rate, plain_reps=reps)
     else:
-        _sweep_k2(results, win, grid.tgt_t, 4, trange, [win.base.shape[0]],
+        t = win.base.shape[0]
+        _sweep_k2(results, win, grid.tgt_t, 4, trange, sorted(
+            {t} | {sh[0] for sh in fine_tiles
+                   if tuple(sh[1:]) == (4, trange) and sh[0] <= t}),
                   f"{tpu}:1025", issue_rate, plain_reps=reps)
 
     cts = _stage_tiles(win.base.shape[0])
@@ -1806,11 +1879,14 @@ def _hold_unheld(tag, by_shape, measured, issue_rate, slabs, queries,
     unheld = _unheld(by_shape, measured)
     print(f"[{tag}] launched shapes no phase held yet: {unheld}", flush=True)
     for r, (prep, slab_np, slab_dev) in slabs.items():
-        if any(nm != "brute_nn" for nm, _ in _unheld(by_shape, measured)):
+        left = _unheld(by_shape, measured)
+        if any(nm != "brute_nn" for nm, _ in left):
             _hold_slab_grids(measured, f"{tag} {r} slab", prep, slab_np,
                              slab_dev, np.random.default_rng(9), issue_rate,
-                             full=False, library=False)
-    for nm, (n_q, n_t) in _unheld(by_shape, measured):
+                             full=False, library=False, fine_tiles=[
+                                 sh for nm, sh in left if nm == "colsweep"])
+    for n_q, n_t in [sh for nm, sh in _unheld(by_shape, measured)
+                     if nm == "brute_nn"]:
         tt = next((sd for _, _, sd in slabs.values() if sd.shape[0] == n_t),
                   None)
         if tt is None:
@@ -2267,12 +2343,6 @@ def phase_mesh(data, data10, measured, issue_rate, small_cpu):
               f"register_scans(mesh=make_mesh()) on the decoded clouds: "
               f"{same}", flush=True)
         check(same, "graph --parallel dp: not the library call's poses")
-        rc, out = _cli("run", src_las, tgt_las, "--parallel", "partition",
-                       "--ingest", expect_ok=False)
-        print(f"[9e icp-torch run --ingest] exit {rc}, {out.strip()}",
-              flush=True)
-        check(rc != 0 and "ROADMAP P15b" in out,
-              "run --ingest did not exit naming P15b")
     paths["mesh_product"] = by_prod
     slabs = {}
     if any(nm != "brute_nn" for nm, _ in _unheld(by_prod, measured)):
@@ -2296,14 +2366,17 @@ def phase_mesh(data, data10, measured, issue_rate, small_cpu):
 
 def phase_across_cards(data, data10):
     """``--across-cards``: phase 9a and 9b's runs on ``make_mesh()``, one
-    rank per visible card, against one device and a 1-rank mesh; see the
-    module docstring."""
+    rank per visible card, and on one process per card over NCCL, against
+    one device and a 1-rank mesh; see the module docstring."""
+    import tempfile
+
     from iterativeclosestpoint_tpu_torch import (
         icp_register,
         icp_register_multiscale,
     )
     from iterativeclosestpoint_tpu_torch.parallel import (
         icp_register_partitioned,
+        icp_register_sharded,
         make_mesh,
         prepare_partition,
     )
@@ -2342,6 +2415,45 @@ def phase_across_cards(data, data10):
         check((res.iterations, res.stop_reason)
               == (base.iterations, base.stop_reason) and gap <= 1e-4,
               f"{tag}: differs from one device")
+    # A mesh over several processes runs the fine level on the host path
+    # (the coarse pose applied to the source in f64 on the host): its
+    # references are that path's, on one device and on the thread mesh.
+    T_coarse = icp_register_multiscale(src, tgt, **kw).levels[-2][1].transform
+    fine_kw = {k: v for k, v in HEADLINE_KW.items()
+               if k not in ("coarse_max_points", "coarse_iterations")}
+    host1 = icp_register(src, tgt, initial_transform=T_coarse, device=DEVICE,
+                         **fine_kw)
+    host_cards = icp_register_sharded(src, tgt, mesh=cards,
+                                      initial_transform=T_coarse, **fine_kw)
+    tmp = tempfile.TemporaryDirectory()
+    n = cards.size
+    try:
+        tag = f"cards 9a dp, {n} processes (NCCL)"
+        _, _, got = _reap("cards-dp", _spawn("cards-dp", n, tmp.name),
+                          CARDS_TIMEOUT_S)
+        g = got[0]
+        T_g = _unhexed(g["transform"]).reshape(4, 4)
+        gap = _pose_gap(T_g, host1.transform, src)
+        same = all(_same_bits(x, _result_json(host_cards)) for x in got)
+        print(f"[{tag}] wall best {min(g['walls']):.4f} s of "
+              f"{[round(w, 4) for w in g['walls']]} (process 0; the others "
+              f"{[round(min(x['walls']), 4) for x in got[1:]]}); fine "
+              f"{g['fine_ms']:.4f} ms/iteration (synced run); "
+              f"{g['iterations']} iterations, {g['message']!r}; every "
+              f"process bit-equal to the thread mesh on the host path: "
+              f"{same}; registration error against one device on the host "
+              f"path {gap:.3e} m ({host1.iterations} iterations, "
+              f"{host1.message!r}), against one device's multiscale run "
+              f"{_pose_gap(T_g, base.transform, src):.3e} m", flush=True)
+        check(all(_unhexed(x["coarse"]).tolist()
+                  == np.asarray(T_coarse).ravel().tolist() for x in got),
+              f"{tag}: the coarse level differs from one device's")
+        check(same, f"{tag}: differs from the thread mesh's bits")
+        check((g["iterations"], g["stop_reason"])
+              == (host1.iterations, int(host1.stop_reason)) and gap <= 1e-4,
+              f"{tag}: differs from one device")
+    finally:
+        tmp.cleanup()
 
     src, tgt = data10["src"], data10["tgt"]
     ladder = icp_register_multiscale(src, tgt, device=DEVICE,
@@ -2378,6 +2490,673 @@ def phase_across_cards(data, data10):
               == (ref.iterations, ref.stop_reason) and gap <= 1e-4,
               f"{tag}: differs from one device")
         del pp
+    tmp = tempfile.TemporaryDirectory()
+    n = cards.size
+    try:
+        tag = f"cards 9b partition 10M, {n} processes (NCCL)"
+        _, _, got = _reap("cards-partition",
+                          _spawn("cards-partition", n, tmp.name),
+                          CARDS_TIMEOUT_S)
+        g = got[0]
+        gap = _pose_gap(_unhexed(g["transform"]).reshape(4, 4),
+                        ref.transform, src[::10])
+        print(f"[{tag}] prep {g['prep']:.4f} s; wall {g['wall']:.4f} s; "
+              f"fine {g['fine_ms']:.4f} ms/iteration (process 0; the others "
+              f"{[round(x['fine_ms'], 4) for x in got[1:]]}); "
+              f"{g['iterations']} iterations, {g['message']!r}; "
+              f"registration error against one device {gap:.3e} m; every "
+              f"process the same bits: "
+              f"{all(_same_bits(x, g) for x in got)}", flush=True)
+        check(all(_same_bits(x, g) for x in got)
+              and (g["iterations"], g["stop_reason"])
+              == (ref.iterations, int(ref.stop_reason)) and gap <= 1e-4,
+              f"{tag}: differs from one device")
+    finally:
+        tmp.cleanup()
+
+
+# --- phase 10: the mesh over several processes ---------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _hexed(a) -> str:
+    return np.ascontiguousarray(np.asarray(a), np.float64).tobytes().hex()
+
+
+def _unhexed(h: str) -> np.ndarray:
+    return np.frombuffer(bytes.fromhex(h), np.float64)
+
+
+def _shapes_out():
+    """This process's launches by kernel and shape, as JSON rows."""
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+
+    return [[nm, list(sh), c] for (nm, sh), c in sk.LAUNCH_SHAPES.items()]
+
+
+def _shapes_in(results) -> dict:
+    """The launches of several processes' ``_shapes_out`` rows, summed."""
+    by = {}
+    for res in results:
+        for nm, sh, c in res["shapes"]:
+            key = (nm, tuple(sh))
+            by[key] = by.get(key, 0) + c
+    return by
+
+
+def _spawn(job, nproc, outdir, *extra):
+    """``nproc`` copies of this script as workers of ``job`` (one process
+    group, a fresh port), started together and waited for; each writes
+    its output to ``outdir/<job>.<pid>.log`` and its result to
+    ``<job>.<pid>.json``. Returns what ``_reap`` waits on."""
+    from pathlib import Path
+
+    port = _free_port()
+    logs = [Path(outdir) / f"{job}.{pid}.log" for pid in range(nproc)]
+    files = [open(p, "wb") for p in logs]
+    t_start = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--worker", job, str(pid), str(nproc),
+         str(port), str(outdir), *map(str, extra)],
+        stdout=f, stderr=subprocess.STDOUT) for pid, f in enumerate(files)]
+    return procs, files, logs, t_start
+
+
+def _reap(job, spawned, timeout, expect_ok=True):
+    """Wait for ``_spawn``'s workers, killing any that outlives
+    ``timeout`` seconds from the start; (return codes, outputs,
+    results)."""
+    import json as _json
+    from pathlib import Path
+
+    procs, files, logs, t_start = spawned
+    try:
+        for p in procs:
+            left = max(t_start + timeout - time.time(), 1.0)
+            try:
+                p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p, f in zip(procs, files):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    rcs = [p.returncode for p in procs]
+    outs = [p.read_bytes().decode(errors="replace") for p in logs]
+    results = []
+    for pid, log in enumerate(logs):
+        path = Path(str(log)[:-4] + ".json")
+        results.append(_json.loads(path.read_text()) if path.exists()
+                       else None)
+    if expect_ok:
+        for pid, (rc, out) in enumerate(zip(rcs, outs)):
+            check(rc == 0 and results[pid] is not None,
+                  f"{job} worker {pid} exited {rc}:\n{out[-4000:]}")
+    return rcs, outs, results
+
+
+def _worker_mesh(pid, nproc, port, devices, backend=None):
+    from iterativeclosestpoint_tpu_torch.parallel import init_multihost
+
+    return init_multihost(f"127.0.0.1:{port}", nproc, pid,
+                          heartbeat_timeout_seconds=MP_HEARTBEAT_S,
+                          local_devices=devices, backend=backend)
+
+
+def _dp_run(mesh, data, reps):
+    """The headline through ``icp_register_multiscale(mesh=)``: a warm-up,
+    ``reps`` timed runs (launches and collective bytes of the last) and a
+    synced breakdown. Returns a JSON-able result."""
+    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+
+    dev = mesh.local_devices[0]
+    kw = dict(HEADLINE_KW, device=dev, mesh=mesh)
+    src, tgt = data["src"], data["tgt"]
+    icp_register_multiscale(src, tgt, **kw)  # warm-up
+    walls = []
+    for _ in range(reps):
+        mesh.reset_stats()
+        sk.reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        ms = icp_register_multiscale(src, tgt, **kw)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    shapes, launches = _shapes_out(), dict(sk.LAUNCHES)
+    res = ms.final
+    it = max(res.iterations, 1)
+    per_rank = [mesh.stats[r]["bytes_sent"] / it for r in mesh.local_ranks]
+    with collect(sync=True) as col:
+        icp_register_multiscale(src, tgt, **kw)
+    return dict(
+        coarse=_hexed(ms.levels[-2][1].transform),
+        transform=_hexed(res.transform),
+        history=_hexed(res.history_transform),
+        rmse=_hexed(res.history_rmse), iterations=res.iterations,
+        stop_reason=int(res.stop_reason), message=res.message, walls=walls,
+        fine_ms=col.stages["fine/loop"] * 1e3 / it, bytes=per_rank,
+        launches=launches, shapes=shapes)
+
+
+def _ingest_sequence(mesh, sp, tp, device, spy=False, **repair):
+    """``icp-torch run --parallel partition --ingest --estimator plane
+    --max-iterations 20 --tolerance 0``'s library sequence on ``mesh``:
+    one strided sample pass per file, the walls, the sampled grid
+    parameters, the coarse carry, the streamed loaders and the
+    partitioned plane run (``repair``: its repair budget and passes, the
+    CLI's defaults if empty). Returns (result, timings and stats, the
+    state, the spy's store or None)."""
+    from iterativeclosestpoint_tpu_torch.io.las import read_header
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.parallel import ingest as ting
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        icp_register_partitioned,
+    )
+    from iterativeclosestpoint_tpu_torch.utils.config import ICPConfig
+
+    cfg = ICPConfig(max_iterations=PART_KW["max_iterations"],
+                    tolerance=PART_KW["tolerance"],
+                    estimator=PART_KW["estimator"])
+    sk.reset_launches()
+    mesh.reset_stats()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    hdr_t, hdr_s = read_header(tp), read_header(sp)
+    offset = ting.header_center(hdr_t)
+    halo = 0.02 * float(np.max(np.asarray(hdr_t.bounds_max, np.float64)
+                               - np.asarray(hdr_t.bounds_min, np.float64)))
+    s_tgt, _ = ting.sample_points(tp, header=hdr_t)
+    s_src, _ = ting.sample_points(sp, header=hdr_s)
+    walls = np.quantile(s_tgt[:, 0], np.linspace(0, 1, mesh.size + 1))
+    walls[0], walls[-1] = -np.inf, np.inf
+    carry = ting.coarse_carry_from_files(
+        sp, tp, mode=cfg.mode, tolerance=max(min(cfg.tolerance, 1e-5), 1e-9),
+        samples=(s_src, s_tgt), device=device)
+    gp = ting.estimate_partition_grid_params(
+        tp, walls, halo, header=hdr_t, n_queries_hint=hdr_s.point_count,
+        sample=s_tgt)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    tstats, sstats = {}, {}
+    part, walls = ting.load_las_partitioned_target(
+        tp, mesh, halo=halo, offset=offset, walls=walls, batch_size=MP_BATCH,
+        stats=tstats)
+    src_g = ting.load_las_partitioned_source(
+        sp, mesh, walls=walls, offset=offset, batch_size=MP_BATCH,
+        stats=sstats)
+    torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    store, restore = _spy_repair() if spy else (None, lambda: None)
+    try:
+        res = icp_register_partitioned(
+            None, None, mesh=mesh, partition_state=part, source_global=src_g,
+            offset=offset, grid_params=gp, resume_carry=carry,
+            max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+            sigma_multiplier=cfg.sigma_multiplier, mode=cfg.mode,
+            estimator=cfg.estimator, robust=cfg.robust,
+            return_registered=False, **repair)
+        torch.cuda.synchronize(device)
+    finally:
+        restore()
+    t3 = time.perf_counter()
+    info = dict(prep=t1 - t0, ingest=t2 - t1, loop=t3 - t2,
+                target=tstats, source=sstats, grid_params=gp,
+                launches=dict(sk.LAUNCHES), shapes=_shapes_out(),
+                coarse_tgt=s_tgt[::max(1, len(s_tgt) // 150_000)],
+                offset=offset)
+    return res, info, part, store
+
+
+def _result_json(res) -> dict:
+    return dict(transform=_hexed(res.transform),
+                history=_hexed(res.history_transform),
+                rmse=_hexed(res.history_rmse), iterations=res.iterations,
+                stop_reason=int(res.stop_reason), message=res.message)
+
+
+def _worker_ingest(mesh, outdir):
+    """10b's worker: the ingest sequence on this process's ranks, a
+    seeded sample of each rank's last matches saved for the parent's
+    cKDTree check, and each sampled winner's normal (rows the repair did
+    not touch) held against its rank's slab normal."""
+    from pathlib import Path
+
+    from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_exact
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        fill_partition_normals,
+    )
+
+    d = Path(outdir)
+    dev = mesh.local_devices[0]
+    res, info, part, store = _ingest_sequence(
+        mesh, d / "src.las", d / "tgt.las", dev, spy=True, **MP_REPAIR)
+    part = fill_partition_normals(
+        part, resolution=info["grid_params"]["normals_resolution"])
+    checked = {}
+    for r in mesh.local_ranks:
+        q, m, _, nrm, bad = store[r]
+        gen = torch.Generator(device=dev).manual_seed(7 + r)
+        rows = torch.randperm(q.shape[0], generator=gen, device=dev)[
+            :SAMPLE_10M // mesh.size]
+        np.savez(d / f"ingest_nn.{r}.npz", q=q[rows].cpu().numpy(),
+                 m=m[rows].cpu().numpy(), bad=bad[rows].cpu().numpy())
+        keep = rows[~bad[rows]]
+        li, ld = nn_exact(m[keep].contiguous(), part.halo_pts[r])
+        checked[r] = dict(
+            most=store[("most", r)],
+            rows=int(keep.numel()), repaired=int(rows.numel() - keep.numel()),
+            on_slab=bool((ld == 0).all()),
+            normals=bool(torch.equal(nrm[keep],
+                                     part.halo_nrm[r][li].to(nrm.dtype))))
+    info.pop("coarse_tgt")
+    info.pop("offset")
+    return dict(_result_json(res), **info, checked=checked)
+
+
+def _failure_worker(mode, pid, nproc, port, outdir):
+    """10c's worker (``tests/_torch_failure_worker.py`` on the card):
+    "run" runs the segmented registration uninterrupted, then again with
+    a rolling checkpoint (process 0) while process 1 SIGKILLs itself at
+    iteration ``MP_KILL_AT``; "resume2" continues from the checkpoint on
+    fresh processes."""
+    import os
+    import signal
+    from pathlib import Path
+
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        RankFailed,
+        icp_register_sharded,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.checkpoint import (
+        load_checkpoint,
+        resume_arguments,
+        save_checkpoint,
+    )
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    mesh = _worker_mesh(pid, nproc, port, ["cuda:0"], "gloo")
+    ckpt = Path(outdir) / "fail_ckpt.json"
+    src, tgt, _ = make_registration_pair(**MP_FAIL)
+    kw = dict(MP_FAIL_KW, device="cuda:0")
+    if mode == "resume2":
+        patch = resume_arguments(load_checkpoint(ckpt),
+                                 MP_FAIL_KW["max_iterations"])
+        res = icp_register_sharded(src, tgt, mesh=mesh, **{**kw, **patch})
+        return _result_json(res)
+    out = dict(uninterrupted=_result_json(
+        icp_register_sharded(src, tgt, mesh=mesh, **kw)))
+
+    def segment_cb(state):
+        if pid == 0:
+            save_checkpoint(
+                ckpt, iteration=state["iteration"],
+                transform=state["transform"], rmse_history=[],
+                prev_error=state["prev_error"],
+                no_improve=state["no_improve"],
+                transform_local=state["transform_local"],
+                center_offset=state["offset"])
+        elif state["iteration"] >= MP_KILL_AT:
+            print(f"SELF_SIGKILL {time.time()!r}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    try:
+        icp_register_sharded(src, tgt, mesh=mesh, segment_callback=segment_cb,
+                             **kw)
+    except RankFailed as e:
+        out["detected"] = [time.time(), str(e)]
+        Path(outdir, f"fail-run.{pid}.json").write_text(json.dumps(out))
+        print(f"DETECTED {e}", flush=True)
+        return None  # the exit code says the run failed
+    out["completed"] = True
+    return out
+
+
+def _partition_cards_run(mesh, data10):
+    """9b's recipe on a mesh of one process per card: the ladder on this
+    process's card, then the partitioned plane run (prep, wall and the
+    fine loop's ms/iteration)."""
+    from iterativeclosestpoint_tpu_torch import icp_register_multiscale
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        icp_register_partitioned,
+        prepare_partition,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.timing import collect
+
+    dev = mesh.local_devices[0]
+    src, tgt = data10["src"], data10["tgt"]
+    ladder = icp_register_multiscale(src, tgt, device=dev,
+                                     **PART_LADDER_KW).final
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pp = prepare_partition(tgt, mesh=mesh, estimator="plane",
+                           n_queries_hint=len(src))
+    torch.cuda.synchronize(dev)
+    t_prep = time.perf_counter() - t0
+    with collect(sync=True) as col:
+        t0 = time.perf_counter()
+        res = icp_register_partitioned(
+            src, tgt, mesh=mesh, prepared_partition=pp,
+            initial_transform=ladder.transform, **PART_KW)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    return dict(_result_json(res), prep=t_prep, wall=wall,
+                fine_ms=col.stages["loop"] * 1e3 / max(res.iterations, 1))
+
+
+def worker(argv) -> int:
+    """``chip_smoke.py --worker JOB PID NPROC PORT OUTDIR``: one process
+    of a phase-10 (or ``--across-cards``) process group; writes its result
+    to ``OUTDIR/JOB.PID.json``."""
+    from pathlib import Path
+
+    job, pid, nproc, port, outdir = (argv[0], int(argv[1]), int(argv[2]),
+                                     argv[3], argv[4])
+    if job.startswith("fail-"):
+        out = _failure_worker(job[len("fail-"):], pid, nproc, port, outdir)
+        if out is None:
+            return 1
+    elif job == "dp":
+        mesh = _worker_mesh(pid, nproc, port, ["cuda:0"], "gloo")
+        out = _dp_run(mesh, make_data(HEADLINE), 1)
+    elif job == "ingest":
+        mesh = _worker_mesh(pid, nproc, port, ["cuda:0"], "gloo")
+        out = _worker_ingest(mesh, outdir)
+    elif job == "cards-dp":
+        mesh = _worker_mesh(pid, nproc, port, [f"cuda:{pid}"])
+        out = _dp_run(mesh, make_data(HEADLINE), 3)
+    elif job == "cards-partition":
+        mesh = _worker_mesh(pid, nproc, port, [f"cuda:{pid}"])
+        out = _partition_cards_run(mesh, make_data(PLANE_10M))
+    else:
+        print(f"chip_smoke: unknown worker job {job!r}", file=sys.stderr)
+        return 2
+    Path(outdir, f"{job}.{pid}.json").write_text(json.dumps(out))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        # Every process leaves together: process 0 holds the group's
+        # store, and exiting under a peer still using it can abort it.
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("transform", "history", "rmse",
+                                      "iterations", "stop_reason"))
+
+
+def phase_multiprocess(data, data10, measured, issue_rate):
+    """Phase 10, the mesh over several processes on this one card; see
+    the module docstring. Returns {path: launches by shape}."""
+    import tempfile
+    from pathlib import Path
+
+    from scipy.spatial import cKDTree
+
+    from iterativeclosestpoint_tpu_torch import (
+        icp_register,
+        icp_register_multiscale,
+    )
+    from iterativeclosestpoint_tpu_torch.io.las import read_las, write_las
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
+        make_pallas_nn_device,
+    )
+    from iterativeclosestpoint_tpu_torch.parallel.ingest import header_center
+    from iterativeclosestpoint_tpu_torch.parallel import (
+        fill_partition_normals,
+        icp_register_sharded,
+        make_mesh,
+    )
+    from iterativeclosestpoint_tpu_torch.parallel import partition as tpart
+    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    card = torch.device("cuda", 0)
+    local2 = make_mesh(devices=[card] * MP_PROCESSES)
+    paths = {}
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    try:
+        # (a) dp over 2 processes sharing the card (gloo)
+        spawned = _spawn("dp", MP_PROCESSES, d)
+        kw = dict(HEADLINE_KW, device=DEVICE)
+        src, tgt = data["src"], data["tgt"]
+        base = icp_register_multiscale(src, tgt, **kw)
+        _, _, got = _reap("dp", spawned, MP_TIMEOUT_S)
+        T_coarse = base.levels[-2][1].transform
+        check(all(_unhexed(g["coarse"]).tolist()
+                  == np.asarray(T_coarse).ravel().tolist() for g in got),
+              "10a: the coarse level differs from one device's")
+        fine_kw = {k: v for k, v in HEADLINE_KW.items()
+                   if k not in ("coarse_max_points", "coarse_iterations")}
+        ref = icp_register_sharded(src, tgt, mesh=local2,
+                                   initial_transform=T_coarse,
+                                   device=DEVICE, **fine_kw)
+        same = all(_same_bits(g, _result_json(ref)) for g in got)
+        # The host path on one device: a process mesh's own reference
+        # (its source posed in f64 on the host, not on the card).
+        fine = icp_register(src, tgt, initial_transform=T_coarse,
+                            device=DEVICE, **fine_kw)
+        T_g = _unhexed(got[0]["transform"]).reshape(4, 4)
+        gap = _pose_gap(T_g, fine.transform, src)
+        for pid, g in enumerate(got):
+            print(f"[10a mp dp] process {pid} of {MP_PROCESSES} (1 rank each, "
+                  f"gloo on {card}): wall {g['walls'][0]:.4f} s; fine "
+                  f"{g['fine_ms']:.4f} ms/iteration (synced run); collective "
+                  f"bytes per iteration per rank {g['bytes']}; launches "
+                  f"{g['launches']}", flush=True)
+        print(f"[10a mp dp] {got[0]['iterations']} iterations, "
+              f"{got[0]['message']!r} (one device {fine.iterations}, "
+              f"{fine.message!r}); transform and history bit-equal to 1 "
+              f"process of {MP_PROCESSES} ranks: {same}; registration error "
+              f"against one device on the host path {gap:.3e} m, against "
+              f"one device's multiscale run "
+              f"{_pose_gap(T_g, base.final.transform, src):.3e} m",
+              flush=True)
+        check(same, "10a: 2 processes differ from 1 process of 2 ranks")
+        check((got[0]["iterations"], got[0]["stop_reason"])
+              == (fine.iterations, int(fine.stop_reason)) and gap <= 1e-4,
+              "10a: differs from one device")
+        check(all(g["launches"]["colsweep_fused"] > 0
+                  and g["launches"]["brute_nn"] > 0 for g in got),
+              "10a: K1 or K3 never launched in a process")
+        paths["mp_dp"] = _shapes_in(got)
+        _hold_unheld("10a mp dp", paths["mp_dp"], measured, issue_rate, {},
+                     torch.as_tensor(data["src_local"], device=dev),
+                     torch.as_tensor(data["tgt_local"], device=dev))
+
+        # (b) the streamed ingest at 10M on 2 processes sharing the card
+        t0 = time.perf_counter()
+        sp, tp = d / "src.las", d / "tgt.las"
+        write_las(sp, data10["src"])
+        write_las(tp, data10["tgt"])
+        print(f"[10b mp ingest] wrote phase 4d's pair as LAS "
+              f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        spawned = _spawn("ingest", MP_PROCESSES, d)
+        # The ingested frame: the decoded (LAS-quantized) target centred
+        # on its header's bounds.
+        tgt_dec, hdr = read_las(tp)
+        tree = cKDTree((tgt_dec - header_center(hdr)).astype(np.float32)
+                       .astype(np.float64))
+        del tgt_dec
+        _, _, got = _reap("ingest", spawned, MP_TIMEOUT_S)
+        for pid, g in enumerate(got):
+            ts, ss = g["target"], g["source"]
+            print(f"[10b mp ingest] process {pid}: prep {g['prep']:.4f} s "
+                  f"(samples, walls, grid parameters {g['grid_params']}, "
+                  f"coarse carry); ingest {g['ingest']:.4f} s (kept "
+                  f"{ts['retained_rows']} of {ts['total_rows']} target and "
+                  f"{ss['retained_rows']} of {ss['total_rows']} source "
+                  f"rows, largest batch {ts['peak_batch_rows']}); loop "
+                  f"{g['loop']:.4f} s, {g['iterations']} iterations, "
+                  f"{g['message']!r}; launches {g['launches']}", flush=True)
+            check(ts["retained_rows"] < ts["total_rows"]
+                  and ss["retained_rows"] < ss["total_rows"]
+                  and ts["peak_batch_rows"] <= MP_BATCH,
+                  f"10b: process {pid} kept the whole cloud or a batch "
+                  "past its size")
+            cap = MP_REPAIR["repair_budget"] * MP_REPAIR["repair_passes"]
+            for r, c in g["checked"].items():
+                print(f"[10b mp ingest] rank {r}: most rows sent to the "
+                      f"collective repair in one iteration {c['most']} "
+                      f"(covered: {cap}); {c['rows']} sampled rows the "
+                      f"repair did not touch ({c['repaired']} it did): "
+                      f"winners on the rank's slab {c['on_slab']}, normals "
+                      f"the winners' slab normals {c['normals']}",
+                      flush=True)
+                check(c["most"] <= cap,
+                      f"10b: rank {r} sent more rows than the repair covers")
+                check(c["on_slab"] and c["normals"],
+                      f"10b: rank {r}'s normals are not its winners'")
+        res2, info2, part2, _ = _ingest_sequence(local2, sp, tp, card,
+                                                 **MP_REPAIR)
+        same = all(_same_bits(g, _result_json(res2)) for g in got)
+        print(f"[10b mp ingest] 1 process of {MP_PROCESSES} ranks: prep "
+              f"{info2['prep']:.4f} s, ingest {info2['ingest']:.4f} s, loop "
+              f"{info2['loop']:.4f} s; {MP_PROCESSES} processes bit-equal "
+              f"to it: {same}", flush=True)
+        check(same, "10b: 2 processes differ from 1 process of 2 ranks")
+        q, m, bad = [], [], []
+        for f in sorted(d.glob("ingest_nn.*.npz")):
+            z = np.load(f)
+            q.append(z["q"])
+            m.append(z["m"])
+            bad.append(z["bad"])
+        qh = np.concatenate(q).astype(np.float64)
+        mh = np.concatenate(m).astype(np.float64)
+        d_ref, _ = tree.query(qh, workers=-1)
+        d0, _ = tree.query(mh, workers=-1)
+        wgap = float(np.abs(np.linalg.norm(mh - qh, axis=1) - d_ref).max())
+        print(f"[10b mp ingest] last iteration's NN on {len(qh)} sampled "
+              f"rows ({int(np.concatenate(bad).sum())} repaired): matched "
+              f"rows are target points: {not d0.any()}; winners' f64 "
+              f"distance - cKDTree {wgap:.3e} m", flush=True)
+        check(not d0.any() and wgap <= 1e-9,
+              "10b: a match is not a nearest neighbour")
+        del tree, q, m, qh, mh
+        paths["mp_ingest"] = _shapes_in(got)
+        # The shapes' grids: each rank's slab grids (the 1-process run's
+        # slabs are the processes' own) and the coarse sample's.
+        gp = info2["grid_params"]
+        part2 = fill_partition_normals(part2,
+                                       resolution=gp["normals_resolution"])
+        slabs = {}
+        for r in range(MP_PROCESSES):
+            slab = part2.halo_pts[r]
+            grid, cgrid, _, _ = tpart._slab_grids(
+                slab, part2.halo_nrm[r], resolution=gp["resolution"],
+                trange=gp["trange"], coarse_trange=gp["coarse_trange"],
+                fine_kernel=gp["fine_kernel"])
+            slabs[f"ingest rank {r}"] = (
+                (None, (grid, cgrid, part2.halo_nrm[r]), gp["resolution"]),
+                slab.cpu().numpy(), slab)
+        ct = info2["coarse_tgt"]
+        ct_local = (ct - center_offset(ct)).astype(np.float32)
+        ct_dev = torch.as_tensor(ct_local, device=dev)
+        slabs["coarse sample"] = (
+            make_pallas_nn_device(ct_local, target_dev=ct_dev,
+                                  with_normals=True),
+            ct_local, ct_dev)
+        _hold_unheld("10b mp ingest", paths["mp_ingest"], measured,
+                     issue_rate, slabs,
+                     torch.as_tensor(data10["src_local"][:1 << 16],
+                                     device=dev),
+                     torch.as_tensor(data10["tgt_local"], device=dev))
+        del slabs, part2
+        # icp-torch on the same files, one rank in this process, against
+        # the library sequence on the same mesh.
+        res1, info1, _, _ = _ingest_sequence(make_mesh(device=DEVICE), sp,
+                                             tp, dev)
+        t0 = time.perf_counter()
+        _, out = _cli("--device", "cuda", "run", sp, tp, "--parallel",
+                      "partition", "--ingest", "--estimator", "plane",
+                      "--max-iterations", PART_KW["max_iterations"],
+                      "--tolerance", PART_KW["tolerance"],
+                      "--checkpoint", d / "ck.json")
+        wall = time.perf_counter() - t0
+        T_cli = np.asarray(json.loads((d / "ck.json").read_text())[
+            "transform"])
+        same = np.array_equal(T_cli, res1.transform)
+        stages = [ln for ln in out.splitlines()
+                  if ln.startswith(("ingest-partitioned", "coarse sample",
+                                    "streamed ingest", "iterations:"))]
+        print(f"[10b icp-torch run --parallel partition --ingest] {wall:.4f}"
+              f" s; {stages}; the library sequence on 1 rank (prep "
+              f"{info1['prep']:.4f} s, ingest {info1['ingest']:.4f} s, loop "
+              f"{info1['loop']:.4f} s, {res1.iterations} iterations): "
+              f"transform bit-equal: {same}", flush=True)
+        check(same, "10b: icp-torch --ingest differs from the library")
+        for path in (sp, tp):
+            path.unlink()
+
+        # (c) a lost process on the card, and the resume
+        spawned = _spawn("fail-run", MP_PROCESSES, d)
+        rcs, outs, got = _reap("fail-run", spawned, MP_TIMEOUT_S,
+                               expect_ok=False)
+        killed = [ln for ln in outs[1].splitlines()
+                  if ln.startswith("SELF_SIGKILL ")]
+        check(rcs[1] == -9 and killed,
+              f"10c: process 1 did not SIGKILL itself: {outs[1][-3000:]}")
+        g = got[0]
+        check(rcs[0] not in (0, None) and g is not None
+              and "detected" in g and "completed" not in g,
+              f"10c: the survivor did not fail: {outs[0][-3000:]}")
+        seen = g["detected"][0] - float(killed[0].split()[1])
+        print(f"[10c mp failure] process 1 killed at iteration {MP_KILL_AT}; "
+              f"process 0 exited {rcs[0]} {seen:.3f} s later: "
+              f"{g['detected'][1][:300]}", flush=True)
+        check(0.0 <= seen < MP_DETECT_S
+              and "mesh process 1 (ranks [1]) was lost" in g["detected"][1],
+              "10c: the survivor did not name the lost process in time")
+        ck = json.loads((d / "fail_ckpt.json").read_text())
+        check(ck["iteration"] == MP_KILL_AT, f"10c: checkpoint at {ck}")
+        spawned = _spawn("fail-resume2", MP_PROCESSES, d)
+        _, _, res_r = _reap("fail-resume2", spawned, MP_TIMEOUT_S)
+        u = g["uninterrupted"]
+        tail = _unhexed(u["rmse"])[MP_KILL_AT:].tolist()
+        same = all(_unhexed(r["rmse"]).tolist() == tail
+                   and r["transform"] == u["transform"] for r in res_r)
+        print(f"[10c mp failure] two fresh processes resumed from the "
+              f"iteration-{MP_KILL_AT} checkpoint: tail and transform "
+              f"bit-equal to the uninterrupted run: {same}", flush=True)
+        check(same, "10c: the resume differs from the uninterrupted run")
+    finally:
+        tmp.cleanup()
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def phase_library_times(data10):
+    """``--library-times``: the library yardstick (chunked ``torch.cdist``
+    + argmin, one call each) at ``LIBRARY_SHAPES``, on the first rows of
+    the 10M pair (the time depends on the shape only)."""
+    dev = torch.device(DEVICE)
+    for n_q, n_t in LIBRARY_SHAPES:
+        q = torch.as_tensor(data10["src_local"][:n_q], device=dev)
+        t = torch.as_tensor(data10["tgt_local"][:n_t], device=dev)
+        # 16,384 queries a call: 32,768 × a 65,536-row chunk is 2³¹
+        # distances, which cdist refuses as a launch configuration.
+        ms, _ = cuda_ms(lambda: cdist_argmin(q, t, q_chunk=16_384), reps=1,
+                        warmup=False)
+        print(f"[library] K3 shape {n_q} x {n_t}: chunked torch.cdist + "
+              f"argmin {ms:.2f} ms (one call)", flush=True)
+        del q, t
 
 
 def main() -> int:
@@ -2387,10 +3166,20 @@ def main() -> int:
         return 1
     from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2:])
     t_start = time.perf_counter()
     resolve_device(None)
     name, smi, issue_rate = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--library-times"]:
+        phase_library_times(make_data(PLANE_10M))
+        print(f"[t] total {time.perf_counter() - t_start:.3f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--across-cards"]:
         phase_across_cards(make_data(HEADLINE), make_data(PLANE_10M))
         print(f"[t] total {time.perf_counter() - t_start:.3f} s")
@@ -2432,8 +3221,10 @@ def main() -> int:
                                                               issue_rate)
     stamp(8)
     paths.update(phase_mesh(data, data10, measured, issue_rate, small_cpu))
-    del data10
     stamp(9)
+    paths.update(phase_multiprocess(data, data10, measured, issue_rate))
+    del data10
+    stamp(10)
 
     table = [
         ("colsweep_fused", "colsweep_fused.cu", 1165),

@@ -29,10 +29,11 @@ are threads of this process, and their host work contends for the
 interpreter: on four H100 cards ``--parallel dp`` ran the 1M fine loop
 ~19x and ``partition`` the 10M one ~5x slower than one card (PERF.md §5),
 so ``--parallel none`` is the faster choice wherever one card holds the
-clouds.
+clouds. ``run --parallel partition --ingest`` streams both LAS files
+(``parallel/ingest.py``) for clouds beyond the host's memory, over the
+same mesh.
 
-Not ported yet, each exiting non-zero with its ROADMAP item: ``run
---ingest`` (P15b, the multi-process streamed ingest) and ``bench`` (P9:
+Not ported yet, exiting non-zero with its ROADMAP item: ``bench`` (P9:
 ``bench.py`` is the JAX package's benchmark).
 """
 
@@ -69,6 +70,151 @@ def _device_or_exit(args):
         return None
 
 
+def _run_partition_ingest(args, cfg, dev) -> int:
+    """``run --parallel partition --ingest``: the streamed registration
+    for clouds beyond the host's memory. One strided sample pass per file
+    gives the slab walls, the per-slab grid parameters and a coarse pose
+    (``coarse_carry_from_files``, the reference's stride-downsample
+    coarse workflow, icp_registration.cpp:852-882); both files then
+    stream through bounded batches, each rank keeping its slab
+    (``parallel/ingest.py``), and the partitioned run starts from the
+    coarse pose (or ``--resume``'s carry). Writes the transform report,
+    history, metrics and checkpoint, not a registered cloud."""
+    from iterativeclosestpoint_tpu_torch.io.las import read_header
+    from iterativeclosestpoint_tpu_torch.parallel.ingest import (
+        coarse_carry_from_files,
+        estimate_partition_grid_params,
+        header_center,
+        load_las_partitioned_source,
+        load_las_partitioned_target,
+        sample_points,
+    )
+    from iterativeclosestpoint_tpu_torch.parallel.mesh import make_mesh
+    from iterativeclosestpoint_tpu_torch.parallel.partition import (
+        icp_register_partitioned,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.checkpoint import (
+        save_checkpoint,
+    )
+    from iterativeclosestpoint_tpu_torch.runtime.metrics import (
+        MetricsWriter,
+        write_history_json,
+        write_transform_report,
+    )
+
+    # Options the streamed path cannot honour fail loudly (the session
+    # path handles them; --ingest bypasses it).
+    bad = [flag for val, flag in (
+        (args.voxel, "--voxel"), (args.multiscale, "--multiscale"),
+        (args.live_every, "--live-every"), (args.output, "-o/--output"))
+        if val]
+    if bad:
+        _print(f"--ingest does not support {', '.join(bad)} (the streamed "
+               "wall-sharded run produces the transform and history, not "
+               "a registered cloud; downsample with --stride)")
+        return 1
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    hdr_t = read_header(args.target)
+    hdr_s = read_header(args.source)
+    offset = header_center(hdr_t)
+    ext = float(np.max(np.asarray(hdr_t.bounds_max, np.float64)
+                       - np.asarray(hdr_t.bounds_min, np.float64)))
+    halo = 0.02 * ext
+    _print(f"ingest-partitioned: {mesh.size}-rank mesh, "
+           f"{hdr_s.point_count} source / {hdr_t.point_count} target pts, "
+           f"halo {halo:.3f} m"
+           + (f", stride {args.stride}" if args.stride > 1 else ""))
+
+    # One strided pass per file feeds the walls, the grid parameters and
+    # the coarse pose.
+    s_tgt, _ = sample_points(args.target, header=hdr_t)
+    s_src, _ = sample_points(args.source, header=hdr_s)
+    walls = np.quantile(s_tgt[:, 0], np.linspace(0, 1, mesh.size + 1))
+    walls[0], walls[-1] = -np.inf, np.inf
+    if args.resume:
+        from iterativeclosestpoint_tpu_torch.runtime.checkpoint import (
+            load_checkpoint,
+            resume_arguments,
+        )
+
+        ckpt = load_checkpoint(args.resume)
+        patch = resume_arguments(ckpt, cfg.max_iterations)
+        cfg.max_iterations = patch["max_iterations"]
+        carry = patch.get("resume_carry") or {
+            "transform": np.asarray(ckpt["transform"]),
+            "prev_error": 1e10, "no_improve": 0}
+        _print(f"resuming from iteration {ckpt['iteration']}")
+    else:
+        # Plane mode whatever the fine estimator (coarse_carry_from_files
+        # says why).
+        carry = coarse_carry_from_files(
+            args.source, args.target, mode=cfg.mode,
+            tolerance=max(min(cfg.tolerance, 1e-5), 1e-9),
+            samples=(s_src, s_tgt), device=dev)
+        _print(f"coarse sample alignment done "
+               f"({time.perf_counter() - t0:.2f}s)")
+    gp = estimate_partition_grid_params(
+        args.target, walls, halo, header=hdr_t,
+        grid_resolution=(cfg.grid_resolution or None),
+        n_queries_hint=hdr_s.point_count, sample=s_tgt)
+    _print(f"sampled grid params: {gp}")
+    del s_src, s_tgt
+    tstats, sstats = {}, {}
+    part, walls = load_las_partitioned_target(
+        args.target, mesh, halo=halo, offset=offset, walls=walls,
+        stride=args.stride, stats=tstats)
+    src_g = load_las_partitioned_source(
+        args.source, mesh, walls=walls, offset=offset, stride=args.stride,
+        stats=sstats)
+    _print(f"streamed ingest done ({time.perf_counter() - t0:.2f}s; "
+           f"this process retained {tstats['retained_rows']} target / "
+           f"{sstats['retained_rows']} source rows)")
+
+    res = icp_register_partitioned(
+        None, None, mesh=mesh, partition_state=part, source_global=src_g,
+        offset=offset, grid_params=gp, resume_carry=carry,
+        max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+        sigma_multiplier=cfg.sigma_multiplier, mode=cfg.mode,
+        estimator=cfg.estimator, robust=cfg.robust, return_registered=False)
+    _print("========== registration finished ==========")
+    _print(f"iterations: {res.iterations}  final RMSE: {res.rmse:.6f}  "
+           f"({res.message}, {time.perf_counter() - t0:.2f}s)")
+    if args.metrics:
+        mw = MetricsWriter(jsonl_path=args.metrics, console=False)
+        for rec in res.iteration_records():
+            mw.iteration(rec, cfg.max_iterations)
+        mw.event("run", success=res.success, rmse=float(res.rmse),
+                 iterations=res.iterations, message=res.message)
+        mw.close()
+        _print(f"metrics written to {args.metrics}")
+    if args.report:
+        write_transform_report(args.report, res)
+        write_history_json(str(Path(args.report).with_suffix(".json")), res)
+        _print(f"transform report written to {args.report}")
+    if args.checkpoint:
+        save_checkpoint(
+            args.checkpoint, iteration=res.iterations,
+            transform=res.transform, rmse_history=res.history_rmse,
+            prev_error=res.carry_prev_error,
+            no_improve=res.carry_no_improve,
+            transform_local=res.carry_transform_local,
+            center_offset=res.center_offset,
+            source_path=args.source, target_path=args.target)
+        _print(f"checkpoint written to {args.checkpoint}")
+    if args.history:
+        _append_history(args.history, {
+            "timestamp": time.time(),
+            "source_points": hdr_s.point_count,
+            "target_points": hdr_t.point_count,
+            "iterations": res.iterations, "rmse": float(res.rmse),
+            "duration_s": time.perf_counter() - t0,
+            "message": res.message, "success": res.success,
+        })
+    return 0 if res.success else 1
+
+
 def cmd_run(args) -> int:
     from iterativeclosestpoint_tpu_torch.runtime.metrics import MetricsWriter
     from iterativeclosestpoint_tpu_torch.runtime.session import (
@@ -85,11 +231,14 @@ def cmd_run(args) -> int:
         if v is not None:
             setattr(cfg, field, v)
 
-    if args.ingest:
-        return _not_ported("run --ingest", "P15b")
+    if args.ingest and args.parallel != "partition":
+        _print("--ingest requires --parallel partition")
+        return 1
     dev = _device_or_exit(args)
     if dev is None:
         return 1
+    if args.ingest:
+        return _run_partition_ingest(args, cfg, dev)
 
     metrics = MetricsWriter(jsonl_path=args.metrics, console=True,
                             stream=sys.stdout)
@@ -532,11 +681,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-device dispatch over one rank per visible "
                         "card: dp = source split over the ranks, "
                         "partition = target split into x-slabs + halo; the "
-                        "ranks are threads of one process, measured slower "
-                        "than none on 4 H100 cards (PERF.md section 5)")
+                        "ranks are threads of this process, measured "
+                        "slower than none on 4 H100 cards (PERF.md section "
+                        "5); a mesh over several processes is the library's "
+                        "parallel.init_multihost")
     r.add_argument("--ingest", action="store_true",
-                   help="streamed multi-process partitioned ingest: not "
-                        "ported yet (ROADMAP P15b)")
+                   help="with --parallel partition: STREAM both LAS files "
+                        "(bounded batches, each rank keeps only its slab: "
+                        "clouds beyond the host's memory); a coarse pass on "
+                        "a strided file sample cold-starts the pose; writes "
+                        "the transform report (--report), not a registered "
+                        "cloud")
     r.add_argument("--live-every", dest="live_every", type=int, default=0,
                    metavar="K",
                    help="stream per-iteration progress every K iterations "

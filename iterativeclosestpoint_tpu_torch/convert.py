@@ -9,7 +9,9 @@ layout (``rows`` and ``weight``, plain arrays) and the convergence carry (``T_cu
 (what the JAX package's arrays convert to) and the port's tensors, so the
 same grid can feed both sweeps. The test and reference backends' grids
 (``CellGrid``, ``HashGrid``) convert field by field with their dtypes
-kept (f32 or f64 coordinates, int32 offsets and indices).
+kept (f32 or f64 coordinates, int32 offsets and indices). A partitioned
+target's slabs (``PartitionState``) convert to the port's ragged per-rank
+slabs, so both packages can run on the same ingested target.
 """
 
 from __future__ import annotations
@@ -78,3 +80,34 @@ def carry_from_numpy(T_cum, prev_error, no_improve, *, dtype, device):
         torch.as_tensor(np.array(no_improve), dtype=torch.int32,
                         device=device),
     )
+
+
+def partition_state_from_numpy(d: dict, mesh, *, dtype=torch.float32,
+                               normals: bool = False):
+    """A JAX ``PartitionState`` given as numpy per device (``halo_pts``
+    (D, M, 3), ``halo_idx`` (D, M), ``halo_nrm`` (D, M, 3), ``x_lo``,
+    ``x_hi`` (D,)) as the port's per-rank slabs on ``mesh``'s devices
+    (this process's ranks): real rows only (``halo_idx`` below 2³¹−1,
+    where JAX pads with far rows), in their order, with their original
+    indices; ``normals`` keeps ``halo_nrm`` (else the slabs carry none,
+    as an ingested state does)."""
+    from iterativeclosestpoint_tpu_torch.parallel.partition import (
+        _IMAX,
+        PartitionState,
+        slab_tensors,
+    )
+
+    idx = np.asarray(d["halo_idx"])
+    if idx.shape[0] != mesh.size:
+        raise ValueError(f"{idx.shape[0]} slabs for a mesh of {mesh.size} "
+                         "ranks")
+    pts, gidx, nrm = [None] * mesh.size, [None] * mesh.size, [None] * mesh.size
+    for r in mesh.local_ranks:
+        real = idx[r] != _IMAX
+        pts[r], gidx[r], nrm[r] = slab_tensors(
+            np.asarray(d["halo_pts"])[r][real], idx[r][real],
+            mesh.devices[r], dtype,
+            np.asarray(d["halo_nrm"])[r][real] if normals else None)
+    return PartitionState(pts, gidx, nrm,
+                          np.asarray(d["x_lo"], np.float64),
+                          np.asarray(d["x_hi"], np.float64))

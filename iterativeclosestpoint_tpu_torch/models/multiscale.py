@@ -32,7 +32,9 @@ runs data-parallel over the mesh (``parallel.sharded``), from the same
 device-side fine inputs (grids, and the source moved by the coarse pose
 on its device), so a 1-rank mesh is the single-device run bit for bit;
 the two-stage boosted level is a single-device refinement and stays off
-under a mesh, as in the JAX package. ``fine_path="partitioned"`` runs the
+under a mesh, as in the JAX package. On a mesh over several processes
+the fine level takes the host path (its source moved by the coarse pose
+on the host; JAX ``multiscale.py:119``). ``fine_path="partitioned"`` runs the
 fine level with the target split into x-slabs over the mesh
 (``parallel.partition``), with the coarse transform as its initial
 pose; ``nn_backend`` maps onto its local search.
@@ -192,6 +194,9 @@ def icp_register_multiscale(
     prepare = (
         len(strides) > 1
         and fine_path != "partitioned"  # builds its own per-slab grids
+        # The prepared grids are one process's device state: a mesh over
+        # several processes takes the host build path.
+        and (mesh is None or mesh.process_count == 1)
         and dtype == torch.float32
         and (fine_backend == "pallas"
              or (fine_backend == "auto" and n * len(target) > 2**31))

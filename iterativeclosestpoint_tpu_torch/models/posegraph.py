@@ -314,7 +314,8 @@ def register_scans(
         the chain when nothing overlaps enough.
       multiscale: run each edge through the coarse-to-fine pipeline
         (``models/multiscale.py``).
-      mesh: a ``parallel.make_mesh`` mesh; edges then run data-parallel
+      mesh: a ``parallel.make_mesh`` mesh (one process: a mesh over
+        several processes raises ValueError); edges then run data-parallel
         over it (``parallel.icp_register_sharded``; multiscale edges
         shard their fine level) and the pose graph is solved with its
         edges split over the ranks (``parallel.optimize_pose_graph_sharded``).
@@ -351,6 +352,13 @@ def register_scans(
             "initial alignment through the edge kwargs instead)")
     if partition and mesh is None:
         raise ValueError("partition=True requires a mesh")
+    if mesh is not None and mesh.process_count > 1:
+        raise ValueError(
+            "register_scans runs on a mesh of one process (its device "
+            "reuse and crops are one process's state); on a multi-process "
+            "mesh register the edges with icp_register_sharded or "
+            "icp_register_partitioned and solve with "
+            "optimize_pose_graph_sharded")
     dev = resolve_device(device)
     scans = [np.asarray(s, np.float64) for s in scans]
     if isinstance(edges, str):

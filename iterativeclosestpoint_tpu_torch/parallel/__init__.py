@@ -1,13 +1,29 @@
-"""The single-host multi-device paths: one thread per rank over a mesh of
-devices (``mesh``), data-parallel ICP with the source split over the
-ranks (``sharded``), the target split into x-slabs with a halo and a
-collective repair (``partition``), and the edge-sharded pose-graph solve
-(``posegraph``). Counterpart of the JAX package's ``parallel/``; its
-multi-process ingest (``init_multihost``, ``to_global``,
-``parallel/ingest.py``) is ROADMAP P15b."""
+"""The multi-device paths: a mesh of ranks over one process's devices or
+over the processes of a ``torch.distributed`` group (``mesh``),
+data-parallel ICP with the source split over the ranks (``sharded``), the
+target split into x-slabs with a halo and a collective repair
+(``partition``), the edge-sharded pose-graph solve (``posegraph``), and
+the streamed per-process LAS ingest (``ingest``). Counterpart of the JAX
+package's ``parallel/``."""
 
-from iterativeclosestpoint_tpu_torch.parallel.mesh import Mesh, make_mesh
+from iterativeclosestpoint_tpu_torch.parallel.ingest import (
+    coarse_carry_from_files,
+    estimate_partition_grid_params,
+    header_center,
+    load_las_partitioned_source,
+    load_las_partitioned_target,
+    load_las_sharded,
+    sample_points,
+    sample_x_walls,
+)
+from iterativeclosestpoint_tpu_torch.parallel.mesh import (
+    Mesh,
+    RankFailed,
+    init_multihost,
+    make_mesh,
+)
 from iterativeclosestpoint_tpu_torch.parallel.partition import (
+    fill_partition_normals,
     icp_register_partitioned,
     prepare_partition,
 )
@@ -20,9 +36,20 @@ from iterativeclosestpoint_tpu_torch.parallel.sharded import (
 
 __all__ = [
     "Mesh",
+    "RankFailed",
     "make_mesh",
+    "init_multihost",
     "icp_register_sharded",
     "icp_register_partitioned",
     "optimize_pose_graph_sharded",
+    "load_las_sharded",
+    "load_las_partitioned_target",
+    "load_las_partitioned_source",
+    "sample_x_walls",
+    "sample_points",
+    "header_center",
+    "estimate_partition_grid_params",
+    "coarse_carry_from_files",
+    "fill_partition_normals",
     "prepare_partition",
 ]

@@ -42,10 +42,15 @@ uncertified rows join the margin failures in the collective repair), or
 "auto" (pallas on the card in f32 for slabs past 131,072 rows, brute
 otherwise).
 
-Left out: the multi-process ingest inputs (``partition_state``,
-``source_global``, ``offset``, ``grid_params``) and
-``fill_partition_normals`` (:306), which serves only them (ROADMAP P15b);
-and the ≥2M auto-segmentation, as on the other paths.
+The streamed ingest (``parallel.ingest``: ``load_las_partitioned_target``
+and ``_source``) hands in ``partition_state``, ``source_global`` and
+``offset`` instead of clouds, and ``grid_params`` (sampled from the file)
+for the per-slab sweep chain; ``fill_partition_normals`` estimates plane
+normals on each rank's own slab (:306-342). On a mesh over several
+processes (``parallel.mesh.init_multihost``) every step builds only this
+process's ranks' slabs, shards and grids.
+
+Left out: the ≥2M auto-segmentation, as on the other paths.
 """
 
 from __future__ import annotations
@@ -77,7 +82,11 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_nn import nn_colsweep_exact
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     resolve_slab_grid_params,
 )
-from iterativeclosestpoint_tpu_torch.parallel.mesh import Mesh, make_mesh
+from iterativeclosestpoint_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    to_global,
+)
 from iterativeclosestpoint_tpu_torch.parallel.sharded import (
     compose_initial,
     per_device,
@@ -89,8 +98,6 @@ from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 
 _FAR = 1.0e6
 _IMAX = 2**31 - 1
-_P15B = ("is the multi-process partitioned ingest, not ported yet "
-         "(ROADMAP P15b)")
 
 
 def _coarse_params(resolution: int, coarse_trange: int = 0):
@@ -99,7 +106,8 @@ def _coarse_params(resolution: int, coarse_trange: int = 0):
 
 
 class PartitionState(NamedTuple):
-    """Per-rank slab buffers (ragged: each rank's own length)."""
+    """Per-rank slab buffers (ragged: each rank's own length), indexed by
+    global rank; None for the ranks of other processes."""
 
     halo_pts: list    # rank → (m_r, 3) slab + halo rows, on its device
     halo_idx: list    # rank → (m_r,) int32 original target index
@@ -147,28 +155,42 @@ def _slab_selection(target: np.ndarray, n_dev: int, halo: float):
     return sels, los, his
 
 
+def slab_tensors(rows: np.ndarray, gidx: np.ndarray, device, dtype,
+                 normals: "np.ndarray | None" = None):
+    """One rank's slab on its device: (points, int32 original indices,
+    normals or None). An empty slab holds one far row with index 2³¹−1,
+    which no real row loses to."""
+    if not len(rows):
+        rows = np.full((1, 3), _FAR)
+        gidx = np.array([_IMAX], np.int32)
+        normals = None if normals is None else np.zeros((1, 3))
+    return (torch.as_tensor(rows, dtype=dtype, device=device),
+            torch.as_tensor(gidx.astype(np.int32), device=device),
+            None if normals is None
+            else torch.as_tensor(normals, dtype=dtype, device=device))
+
+
 def build_partition(target: np.ndarray, devices, halo: float,
                     dtype=torch.float32, normals: "np.ndarray | None" = None,
                     sels=None, los=None, his=None) -> PartitionState:
     """Host build: each rank's slab cut on the host and uploaded to its
-    device (``devices``: one per rank)."""
+    device (``devices``: one per rank; None skips a rank of another
+    process)."""
     target = np.asarray(target)
-    devices = [torch.device(d) for d in devices]
     if sels is None:
         sels, los, his = _slab_selection(target, len(devices), halo)
     pts, idx, nrm = [], [], []
     for s, dev in zip(sels, devices):
-        if len(s):
-            p, i = target[s], s.astype(np.int32)
-            n = None if normals is None else normals[s]
-        else:
-            p = np.full((1, 3), _FAR)
-            i = np.array([_IMAX], np.int32)
-            n = None if normals is None else np.zeros((1, 3))
-        pts.append(torch.as_tensor(p, dtype=dtype, device=dev))
-        idx.append(torch.as_tensor(i, device=dev))
-        nrm.append(None if n is None
-                   else torch.as_tensor(n, dtype=dtype, device=dev))
+        if dev is None:
+            pts.append(None)
+            idx.append(None)
+            nrm.append(None)
+            continue
+        p, i, n = slab_tensors(target[s], s, dev, dtype,
+                               None if normals is None else normals[s])
+        pts.append(p)
+        idx.append(i)
+        nrm.append(n)
     return PartitionState(pts, idx, nrm, np.asarray(los), np.asarray(his))
 
 
@@ -189,16 +211,21 @@ def _target_normals(tgt_dev: torch.Tensor, target: np.ndarray):
 def build_partition_device(target: np.ndarray, mesh: Mesh, halo: float,
                            with_normals: bool = False, sels=None, los=None,
                            his=None) -> PartitionState:
-    """Device build (f32): the target uploaded once per distinct device,
-    each rank's slab (and its normals, estimated once per device over the
-    whole target) gathered there by row index."""
+    """Device build (f32): the target uploaded once per distinct device of
+    this process's ranks, each rank's slab (and its normals, estimated
+    once per device over the whole target) gathered there by row index."""
     target = np.asarray(target)
     n = len(target)
     if sels is None:
         sels, los, his = _slab_selection(target, mesh.size, halo)
     full: dict = {}
     pts, idx, nrm = [], [], []
-    for s, dev in zip(sels, mesh.devices):
+    for r, (s, dev) in enumerate(zip(sels, mesh.devices)):
+        if not mesh.is_local(r):
+            pts.append(None)
+            idx.append(None)
+            nrm.append(None)
+            continue
         if dev not in full:
             t = torch.as_tensor(target, dtype=torch.float32, device=dev)
             nr = _target_normals(t, target) if with_normals else None
@@ -212,6 +239,30 @@ def build_partition_device(target: np.ndarray, mesh: Mesh, halo: float,
         idx.append(torch.where(rows < n, rows, _IMAX).to(torch.int32))
         nrm.append(None if n_pad is None else n_pad[rows])
     return PartitionState(pts, idx, nrm, np.asarray(los), np.asarray(his))
+
+
+def fill_partition_normals(part: PartitionState, *,
+                           resolution: int = 64) -> PartitionState:
+    """Per-slab cell-PCA normals for an ingested ``PartitionState`` (plane
+    mode; the loader leaves ``halo_nrm`` empty). Each of this process's
+    ranks estimates them from its own slab (the slab and its halo cover
+    every real row's neighbourhood within the halo width), on a grid over
+    the slab's own bounding box: another grid than the whole target's, so
+    near cell boundaries the normals differ from the non-ingest build's
+    (JAX ``partition.py:306-342``). The slabs hold real rows only, so no
+    far rows are masked."""
+    nrm = []
+    for r, halo in enumerate(part.halo_pts):
+        if halo is None:
+            nrm.append(None)
+            continue
+        h = halo.to(torch.float32)
+        lo3 = h.amin(dim=0)
+        cell = torch.clamp((h.amax(dim=0) - lo3).max() / resolution,
+                           min=1e-9)
+        nrm.append(estimate_normals_cellpca_device(
+            h, lo3, cell, resolution=resolution).to(halo.dtype))
+    return part._replace(halo_nrm=nrm)
 
 
 def collective_repair(comm, query, m6, dist, certified, halo, gidx, nrm, *,
@@ -350,7 +401,7 @@ def prepare_partition(
         mesh = make_mesh(device=device)
     if estimator not in ("point", "plane"):
         raise ValueError(f"unknown estimator {estimator!r}")
-    for d in mesh.devices:
+    for d in mesh.local_devices:
         resolve_device(d)
     n_dev = mesh.size
     target = np.asarray(target, np.float64)
@@ -359,7 +410,7 @@ def prepare_partition(
     if halo is None:
         halo = 0.02 * float((tgt_local.max(0) - tgt_local.min(0)).max())
     f32 = dtype == torch.float32
-    on_card = mesh.devices[0].type == "cuda"
+    on_card = mesh.local_devices[0].type == "cuda"
     with_normals = estimator == "plane"
     if partition_build == "auto":
         use_device_build = on_card and f32
@@ -377,10 +428,12 @@ def prepare_partition(
         normals = None
         if with_normals:
             t = torch.as_tensor(tgt_local, dtype=torch.float32,
-                                device=mesh.devices[0])
+                                device=mesh.local_devices[0])
             normals = _target_normals(t, tgt_local).cpu().numpy()
-        part = build_partition(tgt_local, mesh.devices, halo, dtype=dtype,
-                               normals=normals, sels=sels, los=los, his=his)
+        part = build_partition(
+            tgt_local, [d if mesh.is_local(r) else None
+                        for r, d in enumerate(mesh.devices)],
+            halo, dtype=dtype, normals=normals, sels=sels, los=los, his=his)
 
     if local_search == "auto":
         local_search = ("pallas" if on_card and f32 and m_loc > 131072
@@ -449,15 +502,19 @@ def icp_register_partitioned(
     with. ``halo`` defaults to 2% of the target's extent: widen it, or
     pass a coarse ``initial_transform``, for badly misaligned pairs.
     ``resume_carry`` continues bit for bit, as on the other paths (the
-    slabs, grids and layout are pose-invariant). ``partition_state``,
-    ``source_global``, ``offset`` and ``grid_params`` are the
-    multi-process ingest's inputs (ROADMAP P15b) and raise.
+    slabs, grids and layout are pose-invariant).
+
+    ``partition_state`` + ``source_global`` + ``offset``: the streamed
+    ingest's inputs (``parallel.ingest.load_las_partitioned_target`` and
+    ``_source``), where no process holds a whole cloud; ``source`` and
+    ``target`` are ignored (pass None) and ``return_registered=False`` is
+    required (the wall-sharded rows have no global order back to the
+    file's). ``grid_params`` (``parallel.ingest.
+    estimate_partition_grid_params``) turns on the per-slab sweep chain
+    (K1, K2, K3; f32); without it "auto" is the per-slab brute search.
+    Plane mode estimates each slab's normals (``fill_partition_normals``)
+    at ``grid_resolution``, else the sampled normals resolution.
     """
-    for name, val in (("partition_state", partition_state),
-                      ("source_global", source_global), ("offset", offset),
-                      ("grid_params", grid_params)):
-        if val is not None:
-            raise NotImplementedError(f"{name} {_P15B}")
     if estimator not in ("point", "plane"):
         raise ValueError(f"unknown estimator {estimator!r}")
     if robust not in ("none", "huber", "tukey"):
@@ -466,76 +523,121 @@ def icp_register_partitioned(
         mesh = (prepared_partition["mesh"] if prepared_partition is not None
                 else make_mesh(device=device))
     n_dev = mesh.size
-    source = np.asarray(source, np.float64)
-    n_orig = len(source)
-    T_init = None
-    if initial_transform is not None:
-        if resume_carry is not None:
+    dev0 = mesh.local_devices[0]
+    with_normals = estimator == "plane"
+    T_init = perm_t = None
+    if partition_state is not None:
+        if source_global is None or offset is None:
             raise ValueError(
-                "initial_transform and resume_carry are mutually exclusive")
-        T_init = np.asarray(initial_transform, np.float64)
-        source = source @ T_init[:3, :3].T + T_init[:3, 3]
-    pp = prepared_partition
-    if pp is None:
-        with stage("partition_prep"):
-            pp = prepare_partition(
-                target, mesh=mesh, halo=halo, dtype=dtype, center=center,
-                estimator=estimator, local_search=local_search,
-                partition_build=partition_build, fine_kernel=fine_kernel,
-                grid_resolution=grid_resolution, n_queries_hint=n_orig)
-    if pp["with_normals"] != (estimator == "plane"):
-        raise ValueError(
-            f"prepared_partition was built with with_normals="
-            f"{pp['with_normals']} but estimator={estimator!r}; rebuild "
-            "the partition to match")
-    if pp["dtype"] != dtype:
-        raise ValueError(
-            f"prepared_partition was built with dtype={pp['dtype']} but "
-            f"this run asks for {dtype}; rebuild the partition to match")
-    if pp["mesh"] is not mesh and pp["mesh"].devices != mesh.devices:
-        raise ValueError("prepared_partition was built on another mesh")
-    offset = pp["offset"]
-    part = pp["part"]
-    ls = pp["local_search"]
-    with_normals = pp["with_normals"]
+                "partition_state requires source_global and offset "
+                "(parallel.ingest.load_las_partitioned_* provide them)")
+        if initial_transform is not None:
+            raise ValueError(
+                "partition_state with initial_transform is not supported "
+                "(resume through resume_carry instead)")
+        if return_registered:
+            raise ValueError(
+                "partition_state requires return_registered=False (the "
+                "wall-sharded order has no global inverse permutation)")
+        offset = np.asarray(offset, np.float64)
+        n_orig = int(source_global[2])
+        part = partition_state
+        gp = grid_params or {}
+        if with_normals:
+            part = fill_partition_normals(
+                part, resolution=(grid_resolution
+                                  or gp.get("normals_resolution")
+                                  or gp.get("resolution") or 64))
+        if grid_params is not None and local_search in ("auto", "pallas"):
+            ls = "pallas"
+            params = {k: grid_params[k] for k in (
+                "resolution", "trange", "coarse_trange", "fine_kernel")}
+        else:
+            ls = "brute" if local_search == "auto" else local_search
+            if ls != "brute":
+                raise ValueError(
+                    "partition_state with local_search='pallas' needs "
+                    "grid_params (parallel.ingest."
+                    "estimate_partition_grid_params: per-slab grid "
+                    "parameters from the strided file sample)")
+            params = dict(resolution=0, trange=0, coarse_trange=0,
+                          fine_kernel="sweep")
+        if ls == "pallas" and dtype != torch.float32:
+            raise ValueError("local_search='pallas' runs in float32 only")
+        shards = [None if x is None else x.to(mesh.devices[r], dtype)
+                  for r, x in enumerate(source_global[0])]
+        weights = [None if x is None else x.to(mesh.devices[r], dtype)
+                   for r, x in enumerate(source_global[1])]
+    else:
+        source = np.asarray(source, np.float64)
+        n_orig = len(source)
+        if initial_transform is not None:
+            if resume_carry is not None:
+                raise ValueError(
+                    "initial_transform and resume_carry are mutually "
+                    "exclusive")
+            T_init = np.asarray(initial_transform, np.float64)
+            source = source @ T_init[:3, :3].T + T_init[:3, 3]
+        pp = prepared_partition
+        if pp is None:
+            with stage("partition_prep"):
+                pp = prepare_partition(
+                    target, mesh=mesh, halo=halo, dtype=dtype, center=center,
+                    estimator=estimator, local_search=local_search,
+                    partition_build=partition_build,
+                    fine_kernel=fine_kernel, grid_resolution=grid_resolution,
+                    n_queries_hint=n_orig)
+        if pp["with_normals"] != with_normals:
+            raise ValueError(
+                f"prepared_partition was built with with_normals="
+                f"{pp['with_normals']} but estimator={estimator!r}; rebuild "
+                "the partition to match")
+        if pp["dtype"] != dtype:
+            raise ValueError(
+                f"prepared_partition was built with dtype={pp['dtype']} but "
+                f"this run asks for {dtype}; rebuild the partition to match")
+        if pp["mesh"] is not mesh and pp["mesh"].devices != mesh.devices:
+            raise ValueError("prepared_partition was built on another mesh")
+        offset = pp["offset"]
+        part = pp["part"]
+        ls = pp["local_search"]
+        params = {k: pp[k] for k in (
+            "resolution", "trange", "coarse_trange", "fine_kernel")}
 
-    # Sort the source by x so the equal shards line up with the target's
-    # x-quantile slabs; the halo and the collective repair absorb the
-    # rest. A stable sort of the f64 x on the first rank's device: the
-    # order of numpy's stable argsort (a 10M host sort takes seconds),
-    # then zero-weight rows up to a rank multiple.
-    dev0 = mesh.devices[0]
-    with stage("host_prep"):
-        src_local = source - offset
-    with stage("upload") as done:
-        perm_t = torch.sort(torch.as_tensor(src_local[:, 0], device=dev0),
-                            stable=True).indices
-        src_sorted = torch.as_tensor(src_local, dtype=dtype,
-                                     device=dev0)[perm_t]
-        done(src_sorted)
-    n_pad = -(-n_orig // n_dev) * n_dev
-    w_all = torch.ones(n_pad, dtype=dtype, device=dev0)
-    if n_pad > n_orig:
-        src_sorted = torch.cat([src_sorted,
-                                src_sorted.new_zeros(n_pad - n_orig, 3)])
-        w_all[n_orig:] = 0.0
-    per = n_pad // n_dev
-    shards = [src_sorted[r * per:(r + 1) * per].to(d)
-              for r, d in enumerate(mesh.devices)]
-    weights = [w_all[r * per:(r + 1) * per].to(d)
-               for r, d in enumerate(mesh.devices)]
+        # Sort the source by x so the equal shards line up with the
+        # target's x-quantile slabs; the halo and the collective repair
+        # absorb the rest. A stable sort of the f64 x on this process's
+        # first device: the order of numpy's stable argsort (a 10M host
+        # sort takes seconds), then zero-weight rows up to a rank
+        # multiple.
+        with stage("host_prep"):
+            src_local = source - offset
+        with stage("upload") as done:
+            perm_t = torch.sort(torch.as_tensor(src_local[:, 0], device=dev0),
+                                stable=True).indices
+            src_sorted = torch.as_tensor(src_local, dtype=dtype,
+                                         device=dev0)[perm_t]
+            done(src_sorted)
+        n_pad = -(-n_orig // n_dev) * n_dev
+        w_all = torch.ones(n_pad, dtype=dtype, device=dev0)
+        if n_pad > n_orig:
+            src_sorted = torch.cat([src_sorted,
+                                    src_sorted.new_zeros(n_pad - n_orig, 3)])
+            w_all[n_orig:] = 0.0
+        shards = to_global(src_sorted, mesh)
+        weights = to_global(w_all, mesh)
 
     chain = {}
     runs, run_w = shards, weights
     grids = [(None, None)] * n_dev
     if ls == "pallas":
-        resolution = pp["resolution"]
+        resolution = params["resolution"]
         coarse_resolution, coarse_trange = _coarse_params(
-            resolution, pp["coarse_trange"])
+            resolution, params["coarse_trange"])
         chain = dict(resolution=resolution,
                      coarse_resolution=coarse_resolution,
-                     trange=pp["trange"], coarse_trange=coarse_trange,
-                     slabs=4, tile_q=128, fine=pp["fine_kernel"])
+                     trange=params["trange"], coarse_trange=coarse_trange,
+                     slabs=4, tile_q=128, fine=params["fine_kernel"])
 
         def prep(comm):
             # Pose-invariant per-rank prep: the slab grids and the
@@ -543,25 +645,27 @@ def icp_register_partitioned(
             r = comm.rank
             grid, cgrid, lo3, cell = _slab_grids(
                 part.halo_pts[r], part.halo_nrm[r], resolution=resolution,
-                trange=pp["trange"], coarse_trange=pp["coarse_trange"],
-                fine_kernel=pp["fine_kernel"])
+                trange=params["trange"],
+                coarse_trange=params["coarse_trange"],
+                fine_kernel=params["fine_kernel"])
             rows, lw = grouped_tile_order_device(
                 shards[r], lo3, cell, resolution=resolution, tile_q=128,
-                group="xy" if pp["fine_kernel"] == "zcol" else "x")
+                group="xy" if params["fine_kernel"] == "zcol" else "x")
             return grid, cgrid, shards[r][rows], weights[r][rows] * lw.to(
                 dtype)
 
         with stage("slab_grids") as done:
             prepped = mesh.run(prep)
-            done(prepped)
-        grids = [(g, c) for g, c, _, _ in prepped]
-        runs = [s for _, _, s, _ in prepped]
-        run_w = [x for _, _, _, x in prepped]
+            done([p for p in prepped if p is not None])
+        grids = [(None, None) if p is None else p[:2] for p in prepped]
+        runs = [None if p is None else p[2] for p in prepped]
+        run_w = [None if p is None else p[3] for p in prepped]
 
     states = [
         (part.halo_pts[r], part.halo_idx[r], part.halo_nrm[r],
          torch.tensor(part.x_lo[r], dtype=dtype, device=d),
          torch.tensor(part.x_hi[r], dtype=dtype, device=d), *grids[r])
+        if mesh.is_local(r) else None
         for r, d in enumerate(mesh.devices)
     ]
 
@@ -580,7 +684,7 @@ def icp_register_partitioned(
     carry = None
     widen = mode == "gui"
     if resume_carry is not None:
-        carry = _resume_state(resume_carry, offset, dtype, mesh.devices[0])
+        carry = _resume_state(resume_carry, offset, dtype, dev0)
         widen = False
 
     def dispatch(carry_, n_iter, widen_):
@@ -604,7 +708,7 @@ def icp_register_partitioned(
     if return_registered:
         out["src"] = out["src"][:n_orig]
     res = package_result(out, offset, return_registered)
-    res.nn_resolution = pp["resolution"] or None
+    res.nn_resolution = params["resolution"] or None
     if res.source_registered is not None:
         unperm = np.empty_like(res.source_registered)
         unperm[perm_t.cpu().numpy()] = res.source_registered

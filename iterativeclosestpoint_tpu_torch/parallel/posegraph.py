@@ -17,6 +17,9 @@ fourth iteration), whose scale is the exact global interpolated median of
 the real edges' residual norms (two bit-pattern bisections through
 ``psum``, ``models.icp._global_masked_kth``), f64 by default, and the
 non-finite guard. The RMS residual counts real edges only.
+
+On a mesh over several processes every process builds the edge shards
+from the same ``edges`` and runs only its own ranks'.
 """
 
 from __future__ import annotations
@@ -124,7 +127,7 @@ def optimize_pose_graph_sharded(
         dtype = torch.float64
     if mesh is None:
         mesh = make_mesh(device=device)
-    for d in mesh.devices:
+    for d in mesh.local_devices:
         resolve_device(d)
     k = n_poses
     E = len(edges)
@@ -166,7 +169,7 @@ def optimize_pose_graph_sharded(
             n_poses=k, max_iterations=max_iterations, damping=damping,
             tolerance=tolerance, robust=robust)
 
-    poses, iters, converged, rmse = mesh.run(rank_fn)[0]
+    poses, iters, converged, rmse = mesh.run(rank_fn)[mesh.local_ranks[0]]
     poses_np = W @ poses.cpu().numpy().astype(np.float64) @ W_inv
     if not np.isfinite(poses_np).all():
         rmse, converged = float("inf"), False

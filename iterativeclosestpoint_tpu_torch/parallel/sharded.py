@@ -20,10 +20,17 @@ The loop is ``models.icp.icp_core`` itself and segmented runs go through
 segment-boundary carries and bit-identical resume work as on one device.
 A 1-rank mesh computes exactly what ``icp_register`` computes.
 
+On a mesh over several processes (``parallel.mesh.init_multihost``) each
+process holds the full ``source`` and ``target`` (the JAX package's host
+path, :316-320), builds the NN state and layout itself, and uploads only
+its ranks' shards; ``return_registered`` gathers the registered rows to
+every process. ``source_global`` (from ``parallel.ingest.load_las_sharded``)
+is the sharded ingest, where no process holds the source: the NN state
+comes from the target alone and rows stay in file order (:226-241).
+
 Left out: the JAX package's ≥2M-points-per-chip auto-segmentation
 (:350-356), as the single-device port leaves out its own (no launch here
-is long-lived), and ``source_global`` (the multi-process sharded ingest,
-ROADMAP P15b).
+is long-lived).
 """
 
 from __future__ import annotations
@@ -51,8 +58,11 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
 )
 from iterativeclosestpoint_tpu_torch.parallel.mesh import (
     Mesh,
+    _replicas,
     make_mesh,
     pad_to_multiple,
+    process_allgather,
+    to_global,
 )
 from iterativeclosestpoint_tpu_torch.runtime.timing import stage
 from iterativeclosestpoint_tpu_torch.utils import hostmath
@@ -72,10 +82,10 @@ def replicate(tree, device: torch.device):
 
 
 def per_device(mesh: Mesh, tree) -> list:
-    """``tree`` replicated once per distinct device of ``mesh``, indexed by
-    rank (ranks on one device share one copy)."""
-    copies: dict = {}
-    return [copies.setdefault(d, replicate(tree, d)) for d in mesh.devices]
+    """``tree`` replicated once per distinct device of this process's
+    ranks, indexed by global rank (ranks on one device share one copy;
+    None for other processes' ranks)."""
+    return _replicas(mesh, lambda d: replicate(tree, d))
 
 
 def mesh_carry(carry, device):
@@ -83,13 +93,15 @@ def mesh_carry(carry, device):
     return None if carry is None else tuple(replicate(list(carry), device))
 
 
-def merge_outputs(outs: list, return_registered: bool) -> dict:
-    """One loop output from every rank's: the scalars and history of rank
-    0 (every rank holds the same bits) and the registered shards joined in
-    rank order on the host."""
-    out = {k: v for k, v in outs[0].items() if k != "src"}
+def merge_outputs(mesh: Mesh, outs: list, return_registered: bool) -> dict:
+    """One loop output from every rank's: the scalars and history of this
+    process's first rank (every rank holds the same bits) and the
+    registered shards joined in rank order on the host, across
+    processes."""
+    out = {k: v for k, v in outs[mesh.local_ranks[0]].items() if k != "src"}
     if return_registered:
-        out["src"] = torch.cat([o["src"].cpu() for o in outs])
+        out["src"] = process_allgather(mesh, torch.cat(
+            [outs[r]["src"].cpu() for r in mesh.local_ranks]))
     return out
 
 
@@ -128,7 +140,7 @@ def run_loop(mesh: Mesh, shards: list, weights: list, targets: list,
             out["src"] = apply_transform(out["T_cum"], registered_from[r])
         return out
 
-    return merge_outputs(mesh.run(rank_fn), return_registered)
+    return merge_outputs(mesh, mesh.run(rank_fn), return_registered)
 
 
 def icp_register_sharded(
@@ -170,27 +182,45 @@ def icp_register_sharded(
     multiscale fine level's device inputs: the query layout is built on
     their device and each rank's shard and the grids are replicated from
     there. ``initial_transform`` pre-aligns the source on the host and is
-    composed into the result. ``source_global`` is the multi-process
-    ingest (ROADMAP P15b) and raises.
+    composed into the result; the overlapped device inputs
+    (``device_data``/``prepared_nn``) are for a single-process mesh.
+
+    ``source_global`` = (shards, weights, n_rows) from
+    ``parallel.ingest.load_las_sharded``: per global rank, the rank's
+    source rows and 0/1 weights on its device (None for other processes'
+    ranks), and the real row count. ``source`` is ignored (pass None);
+    the NN state is built from ``target`` alone and the query layout is
+    skipped (row order is file order; exactness is unaffected).
     """
-    if source_global is not None:
-        raise NotImplementedError(
-            "source_global (multi-process sharded ingest) is not ported yet "
-            "(ROADMAP P15b)")
     if mesh is None:
         mesh = make_mesh(device=device)
     if estimator not in ("point", "plane"):
         raise ValueError(f"unknown estimator {estimator!r}")
     if robust not in ("none", "huber", "tukey"):
         raise ValueError(f"unknown robust mode {robust!r}")
-    for d in mesh.devices:
+    for d in mesh.local_devices:
         resolve_device(d)
     n_dev = mesh.size
-    dev0 = mesh.devices[0]
+    dev0 = mesh.local_devices[0]
 
-    source = np.asarray(source, np.float64)
+    if source_global is not None:
+        if prepared_nn is not None or device_data is not None:
+            raise ValueError(
+                "source_global cannot combine with prepared_nn/device_data")
+        if initial_transform is not None:
+            raise ValueError(
+                "source_global with initial_transform is not supported "
+                "(fold the pose into a resume_carry instead)")
+        n_orig = int(source_global[2])
+    else:
+        source = np.asarray(source, np.float64)
+        n_orig = len(source)
+    if prepared_nn is not None and mesh.process_count > 1:
+        raise ValueError(
+            "prepared_nn is single-process only (the grids are one "
+            "process's device state); a multi-process mesh runs the host "
+            "build path")
     target = np.asarray(target, np.float64)
-    n_orig = len(source)
     T_init = None
     if initial_transform is not None:
         if resume_carry is not None:
@@ -207,7 +237,24 @@ def icp_register_sharded(
     else:
         offset = hostmath.center_offset(target) if center else np.zeros(3)
 
-    if prepared_nn is not None:
+    rows = row_weight = None
+    if source_global is not None:
+        if nn_backend == "auto":
+            nn_backend = ("bruteforce" if n_orig * len(target) <= 2**31
+                          else "pallas")
+        tgt_np = target - offset
+        tgt_loc = torch.as_tensor(tgt_np, dtype=dtype, device=dev0)
+        # The NN state from the target alone; the dummy source's layout
+        # is dropped (no process holds the source).
+        nn_fn, nn_state, _, _, nn_res = _default_nn(
+            nn_backend, np.zeros((1, 3)), tgt_np, grid_resolution,
+            cell_capacity, estimator=estimator,
+            source_dev=tgt_loc.new_zeros((1, 3)), target_dev=tgt_loc)
+        shards = [None if s is None else s.to(mesh.devices[r], dtype)
+                  for r, s in enumerate(source_global[0])]
+        weights = [None if w is None else w.to(mesh.devices[r], dtype)
+                   for r, w in enumerate(source_global[1])]
+    elif prepared_nn is not None:
         nn_fn, nn_state, nn_res = prepared_nn
         if getattr(nn_fn, "with_normals", False) != (estimator == "plane"):
             raise ValueError(
@@ -232,10 +279,10 @@ def icp_register_sharded(
         if pad:
             rows_d = torch.cat([rows_d, rows_d[-1:].expand(pad)])
             lw = torch.cat([lw, lw.new_zeros(pad)])
-        src_all = src_loc[rows_d]
-        w_all = lw.to(dtype)
         rows = rows_d.cpu().numpy()
         row_weight = lw.cpu().numpy()
+        shards = to_global(src_loc[rows_d], mesh)
+        weights = to_global(lw.to(dtype), mesh)
     else:
         src_np = source - offset
         tgt_np = target - offset
@@ -245,7 +292,6 @@ def icp_register_sharded(
             estimator=estimator,
             source_dev=torch.as_tensor(src_np, dtype=dtype, device=dev0),
             target_dev=tgt_loc)
-        rows = row_weight = None
         if rows_t is not None:
             # The single-device layout; each rank's shard inherits its
             # spatial compactness.
@@ -257,14 +303,8 @@ def icp_register_sharded(
             row_weight = w_t.cpu().numpy()
             w = w.copy()
             w[: len(row_weight)] = row_weight
-        src_all = torch.as_tensor(src_pad, dtype=dtype)
-        w_all = torch.as_tensor(w, dtype=dtype)
-
-    per = src_all.shape[0] // n_dev
-    shards = [src_all[r * per:(r + 1) * per].to(d)
-              for r, d in enumerate(mesh.devices)]
-    weights = [w_all[r * per:(r + 1) * per].to(d)
-               for r, d in enumerate(mesh.devices)]
+        shards = to_global(torch.as_tensor(src_pad, dtype=dtype), mesh)
+        weights = to_global(torch.as_tensor(w, dtype=dtype), mesh)
     targets = per_device(mesh, tgt_loc)
     states = per_device(mesh, nn_state)
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, a CUDA request without CUDA raises instead of running on the CPU
-(through the library and through ``icp-torch``), and ``chip_smoke.py``
-refuses to run without a card. Each check runs in a
+package, nor do the multi-process test workers (they run where JAX is
+not installed), a CUDA request without CUDA raises instead of running on
+the CPU (through the library and through ``icp-torch``), and
+``chip_smoke.py`` refuses to run without a card. Each check runs in a
 fresh interpreter, where nothing else has imported JAX yet."""
 
 import os
@@ -33,7 +34,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "    'runtime.session', 'runtime.profiling', 'runtime.smoke',\n"
         "    'models.posegraph', 'ops.hashgrid', 'ops.cellblock',\n"
         "    'parallel', 'parallel.mesh', 'parallel.sharded',\n"
-        "    'parallel.partition', 'parallel.posegraph'}\n"
+        "    'parallel.partition', 'parallel.posegraph', 'parallel.ingest'}\n"
         "missing = {e for e in expected if p.__name__ + '.' + e not in names}\n"
         "assert not missing, missing\n"
         "for name in names:\n"
@@ -108,5 +109,30 @@ def test_chip_smoke_refuses_without_cuda():
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
     source = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in source
+    assert "iterativeclosestpoint_tpu." not in source
+
+
+@pytest.mark.parametrize("worker", ["_torch_multihost_worker",
+                                    "_torch_failure_worker"])
+def test_workers_load_neither_jax_nor_the_jax_package(worker):
+    """A multi-process worker's own module and every port module it
+    reaches import no JAX."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        f"import {worker}\n"
+        "import iterativeclosestpoint_tpu_torch.parallel\n"
+        "import iterativeclosestpoint_tpu_torch.runtime.checkpoint\n"
+        "import iterativeclosestpoint_tpu_torch.models.posegraph\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'iterativeclosestpoint_tpu'"
+        " or m.startswith('iterativeclosestpoint_tpu.')]\n"
+        "print('LOADED', bad)\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout
+    source = (ROOT / "tests" / f"{worker}.py").read_text()
     assert "import jax" not in source
     assert "iterativeclosestpoint_tpu." not in source

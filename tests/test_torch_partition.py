@@ -1,8 +1,8 @@
 """Port parity: the partitioned target (``parallel/partition.py``: x-slabs
 + halo, collective repair) on CPU mesh ranks, against the port's single
 device path and the JAX package's ``icp_register_partitioned`` on as
-many virtual devices (mirrors ``tests/test_partition.py`` but for its
-multi-process ingest cases, ROADMAP P15b).
+many virtual devices (mirrors ``tests/test_partition.py``; its ingest
+cases are in ``test_torch_ingest.py`` and ``test_torch_multihost.py``).
 
 Tolerances and why:
 
@@ -478,13 +478,22 @@ def test_partitioned_zcol_kernel_matches_brute():
     assert _reg_err(res_z.transform, res_b.transform, src) < 1e-4
 
 
-@pytest.mark.parametrize("name", ["partition_state", "source_global",
-                                  "offset", "grid_params"])
-def test_ingest_inputs_raise_p15b(name):
-    src, tgt, _ = make_registration_pair(n=200, seed=1)
-    with pytest.raises(NotImplementedError, match="P15b"):
-        tpart.icp_register_partitioned(src, tgt, mesh=_mesh(2),
-                                       **{name: object()})
+@pytest.mark.parametrize("extra, match", [
+    (dict(offset=np.zeros(3)), "requires source_global and offset"),
+    (dict(source_global="sg"), "requires source_global and offset"),
+    (dict(source_global="sg", offset=np.zeros(3),
+          initial_transform=np.eye(4)), "initial_transform"),
+    (dict(source_global="sg", offset=np.zeros(3),
+          return_registered=True), "return_registered=False"),
+])
+def test_partition_state_input_checks(extra, match):
+    """The JAX package's checks on the ingest inputs
+    (partition.py:833-848), raised by both packages on the same call."""
+    extra = dict({"return_registered": False}, **extra)
+    for fn, mesh in ((tpart.icp_register_partitioned, _mesh(2)),
+                     (jpart.icp_register_partitioned, jax_mesh(2))):
+        with pytest.raises(ValueError, match=match):
+            fn(None, None, mesh=mesh, partition_state="part", **extra)
 
 
 @pytest.mark.parametrize("kwargs, local_search", [

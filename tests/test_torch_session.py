@@ -318,12 +318,31 @@ def test_cli_end_to_end(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["bench"], "P9"),
-    (["run", "s.las", "t.las", "--parallel", "partition", "--ingest"],
-     "P15b"),
 ])
 def test_cli_unported_exit_nonzero(capsys, argv, item):
     assert cli_main(argv) != 0
     assert f"ROADMAP {item}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags, said", [
+    ([], "requires --parallel partition"),
+    (["--parallel", "dp"], "requires --parallel partition"),
+    (["--parallel", "partition", "--multiscale"], "--multiscale"),
+    (["--parallel", "partition", "-o", "reg.las"], "-o/--output"),
+    (["--parallel", "partition", "--voxel", "0.5"], "--voxel"),
+    (["--parallel", "partition", "--live-every", "2"], "--live-every"),
+])
+def test_cli_ingest_input_checks(capsys, flags, said):
+    """``run --ingest`` exits 1 on the options the JAX CLI rejects
+    (cli.py:66-80, :227-231), before reading a file, as the JAX CLI
+    does."""
+    from iterativeclosestpoint_tpu.cli import main as jax_cli_main
+
+    argv = ["run", "s.las", "t.las", "--ingest", *flags]
+    assert cli_main(["--device", "cpu", *argv]) == 1
+    assert said in capsys.readouterr().out
+    assert jax_cli_main(argv) == 1
+    assert said in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv", [

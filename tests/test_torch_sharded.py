@@ -249,8 +249,19 @@ def test_multiscale_four_ranks_f32():
     assert _reg_err(four.transform, one.transform, src) < 1e-4
 
 
-def test_source_global_raises_p15b():
-    src, tgt, _ = make_registration_pair(n=200, seed=1)
-    with pytest.raises(NotImplementedError, match="P15b"):
+@pytest.mark.parametrize("extra, match", [
+    (dict(prepared_nn=object()), "prepared_nn/device_data"),
+    (dict(device_data=object()), "prepared_nn/device_data"),
+    (dict(initial_transform=np.eye(4)), "initial_transform"),
+])
+def test_source_global_input_checks(extra, match):
+    """The JAX package's checks on ``source_global`` (sharded.py:185-195),
+    raised by both packages on the same call."""
+    _, tgt, _ = make_registration_pair(n=200, seed=1)
+    with pytest.raises(ValueError, match=match):
         icp_register_sharded(None, tgt, mesh=_mesh(2),
-                             source_global=(None, None, 0))
+                             source_global=([None] * 2, [None] * 2, 0),
+                             **extra)
+    with pytest.raises(ValueError, match=match):
+        jax_sharded(None, tgt, mesh=jax_mesh(2),
+                    source_global=(None, None, 0), **extra)
