@@ -99,8 +99,8 @@ Phases, one or more lines each:
    pair's grids; (d) on a 250k pair without multiscale, 5 + 5 iterations
    resumed from the checkpoint equal 10 in one run, and a run in live
    segments of 5 streams the one-shot history, bit for bit; (e)
-   ``replay -k 3``, ``status`` and ``view`` to HTML; (f) ``bench`` exits
-   non-zero naming P9 (the ``--parallel`` runs are phase 9e);
+   ``replay -k 3``, ``status`` and ``view`` to HTML (the ``--parallel``
+   runs are phase 9e, ``bench`` phase 11a);
 8. the multi-scan pose graph: (a) ``tools/exp_ms3.py``'s configuration,
    four x-windows (0.4 of the x extent at a step of 0.2, ~800k points
    each, N(0, 0.01) noise from ``default_rng(0)``) of
@@ -198,14 +198,33 @@ Phases, one or more lines each:
    30 s naming the lost process, and two fresh processes resume to the
    uninterrupted tail and transform bit for bit. Every shape the dp and
    ingest processes launched is held against plain;
-11. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
+11a. the benchmark: ``icp-torch bench`` as a subprocess on the card
+   (``BENCH_REPS=3``, ``BENCH_SMOKE=0``, full N; the native octree
+   baseline at ``BENCH_BASELINE_N=250000`` to keep the phase short: the
+   1M baseline alone takes minutes on the host's CPU). Its exit code is
+   0, its JSON line has the terrain, volume and plane rows with
+   ``bench.py``'s keys, the terrain row ran 20 fine iterations to phase
+   4's RMSE bit for bit (the same call on the same card),
+   ``vs_baseline`` is a number and the parity error against the native
+   pipeline is under 1e-4 m (the reference's iteration count is printed,
+   not gated); each kernel launched in it, and every shape it launched
+   is held against plain (the parity pair's K3 shape here). Its JSON
+   line, report lines, baseline and parity lines are printed;
+11b. the f64 oracle on the card: ``icp_register(dtype=torch.float64,
+   nn_backend="bruteforce", center=False, max_iterations=30)`` on the
+   card against the port's ``utils/oracle.py`` on 20,000-point pairs
+   (seeds 0 and 3, gui and cli): the same iteration count, stop message
+   and inlier counts, every iteration's transform within 1e-9 (and its
+   RMSE within 1e-9 relative);
+12. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
    the main paths (headline, volume, plane, plane_10m, product, graph,
    backends, phase 9's mesh_dp, mesh_partition, mesh_repair, mesh_graph,
-   mesh_product, and phase 10's mp_dp and mp_ingest, each summed over
-   its processes), error, times, data-sheet bound and issue floor at its
-   most launched shape (K3: the most launched with a library time), and
-   every measured shape under ``shapes`` with its launches per path;
-12. the last line: ``{"ok": true, "device": {...}}``.
+   mesh_product, phase 10's mp_dp and mp_ingest, each summed over its
+   processes, and phase 11a's bench), error, times, data-sheet bound and
+   issue floor at its most launched shape (K3: the most launched with a
+   library time), and every measured shape under ``shapes`` with its
+   launches per path;
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --across-cards``, on a host with several cards,
 runs phases 1 and 2, then phase 9a and 9b's runs on ``make_mesh()`` (one
@@ -223,8 +242,9 @@ mesh over the cards, bit for bit. It holds no kernel and prints no
 the library yardstick (chunked ``torch.cdist`` + argmin, one call each)
 at the K3 shapes the default run leaves untimed (past 1e9 pairs): phase
 9b's slabs, 512 and 4,096 queries against 2,700,718 rows and 32,768
-against 2,500,047, and phase 10b's, 512, 4,096 and 16,384 against
-5,205,074 (about four minutes).
+against 2,500,047, phase 10b's, 512, 4,096 and 16,384 against
+5,205,074, and phase 11a's parity pair, 50,000 against 50,000 (about
+four minutes).
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Without CUDA it exits with code 1 before anything else.
@@ -322,11 +342,18 @@ MP_FAIL_KW = dict(nn_backend="pallas", max_iterations=12,
 MP_KILL_AT = 6          # the iteration at whose boundary process 1 dies
 MP_DETECT_S = 30.0      # the survivor's bound from the kill to its error
 CARDS_TIMEOUT_S = 600   # --across-cards: a process group's wall limit
+# phase 11a: icp-torch bench at full N; its native baseline at a quarter
+# of N (the 1M baseline takes minutes on the host's CPU)
+BENCH_REPS = 3
+BENCH_BASELINE_N = 250_000
+BENCH_TIMEOUT_S = 600
+ORACLE_N = 20_000       # phase 11b: the f64 pairs held against the oracle
 # --library-times: K3's shapes past LIBRARY_PAIRS_MAX: phase 9b's slabs (4
-# ranks, halo 2% and 1 mm) and phase 10b's (2 ranks; the other slab holds
-# 5,194,278 rows)
+# ranks, halo 2% and 1 mm), phase 10b's (2 ranks; the other slab holds
+# 5,194,278 rows) and phase 11a's parity pair
 LIBRARY_SHAPES = ((512, 2_700_718), (4096, 2_700_718), (32_768, 2_500_047),
-                  (512, 5_205_074), (4096, 5_205_074), (16_384, 5_205_074))
+                  (512, 5_205_074), (4096, 5_205_074), (16_384, 5_205_074),
+                  (50_000, 50_000))
 DEVICE = "cuda"
 
 
@@ -1531,13 +1558,6 @@ def phase_product(measured, issue_rate):
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         check(rgap <= 0.0005 + 1e-6, f"replay differs: {rgap}")
         check("runs: 1" in status, status)
-
-        # (f) the verb that is not ported yet (--parallel runs: phase 9e)
-        rc, out = _cli("bench", expect_ok=False)
-        print(f"[7f unported] icp-torch bench: exit {rc}, {out.strip()}",
-              flush=True)
-        check(rc != 0 and "ROADMAP P9" in out,
-              "bench did not exit non-zero naming P9")
     return by_shape
 
 
@@ -3142,6 +3162,120 @@ def phase_multiprocess(data, data10, measured, issue_rate):
     return paths
 
 
+def phase_bench(measured, issue_rate, head_rmse):
+    """Phase 11a, ``icp-torch bench`` in a subprocess on the card; see the
+    module docstring. Returns its launches by shape (the subprocess's own
+    tally, which it logs)."""
+    import os
+    import re
+
+    from iterativeclosestpoint_tpu_torch.bench import parity_pair
+
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory
+    env = {**os.environ, "BENCH_REPS": str(BENCH_REPS),
+           "BENCH_SMOKE": "0", "BENCH_BASELINE_N": str(BENCH_BASELINE_N)}
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "iterativeclosestpoint_tpu_torch.cli",
+         "--device", DEVICE, "bench"],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, env=env)
+    wall = time.perf_counter() - t0
+    err = r.stderr
+    print(f"[11a bench] icp-torch bench (BENCH_REPS={BENCH_REPS}, "
+          f"BENCH_SMOKE=0, BENCH_BASELINE_N={BENCH_BASELINE_N}: the native "
+          f"baseline at a quarter of N) exited {r.returncode} after "
+          f"{wall:.1f} s", flush=True)
+    check(r.returncode == 0,
+          f"11a: icp-torch bench exited {r.returncode}: {err[-6000:]}")
+    keep = ("card:", "nn-slab-sweep", "reject+moments:", "terrain:",
+            "breakdown:", "volume:", "nn-zcol", "plane:", "baseline:",
+            "parity:", "launches:", "total:")
+    for ln in err.splitlines():
+        if ln.startswith(keep) and not ln.startswith("launch shapes:"):
+            print(f"[11a bench] {ln}", flush=True)
+    out_lines = r.stdout.strip().splitlines()
+    check(bool(out_lines), "11a: bench printed no JSON line")
+    line = json.loads(out_lines[-1])
+    print(f"[11a bench] JSON: {out_lines[-1]}", flush=True)
+    row_keys = {"blended_pts_per_s", "seconds", "rmse",
+                "fine_loop_pts_per_s", "fine_ms_per_iter"}
+    check(set(line) == {"metric", "value", "unit", "vs_baseline", "rows"}
+          and set(line["rows"]) == {"terrain", "volume", "plane"}
+          and all(set(v) == row_keys for v in line["rows"].values()),
+          f"11a: the JSON line's keys or rows differ: {line}")
+    m = re.search(r"^terrain: .*rmse=([^,]+), fine iterations (\d+)\)$",
+                  err, re.M)
+    check(m is not None, "11a: no terrain line")
+    rmse, iters = float(m.group(1)), int(m.group(2))
+    print(f"[11a bench] terrain: {iters} fine iterations, rmse {rmse!r} "
+          f"against phase 4's {head_rmse!r}: bit-equal {rmse == head_rmse}",
+          flush=True)
+    check(iters == HEADLINE_KW["max_iterations"],
+          f"11a: terrain ran {iters} fine iterations")
+    check(rmse == head_rmse, "11a: the terrain rmse differs from phase 4's")
+    check(isinstance(line["vs_baseline"], (int, float))
+          and line["vs_baseline"] > 0, "11a: vs_baseline is not a number")
+    p = re.search(r"^parity: reference iters=(\d+) .*transform error vs "
+                  r"reference = (\S+) m", err, re.M)
+    check(p is not None and float(p.group(2)) < 1e-4,
+          "11a: parity above 1e-4 m")
+    launches = json.loads(re.search(r"^launches: (.*)$", err,
+                                    re.M).group(1))
+    for name in ("colsweep_fused", "colsweep", "brute_nn"):
+        check(launches[name] > 0, f"11a: {name} never launched")
+    shapes = json.loads(re.search(r"^launch shapes: (.*)$", err,
+                                  re.M).group(1))
+    by_shape = {(nm, tuple(sh)): c for nm, sh, c in shapes}
+    dev = torch.device(DEVICE)
+    psrc, ptgt = parity_pair()
+    _hold_unheld("11a bench", by_shape, measured, issue_rate, {},
+                 torch.as_tensor(psrc.astype(np.float32), device=dev),
+                 torch.as_tensor(ptgt.astype(np.float32), device=dev))
+    return by_shape
+
+
+def phase_oracle():
+    """Phase 11b, the card's f64 trajectories against the port's f64
+    oracle; see the module docstring."""
+    from iterativeclosestpoint_tpu_torch import icp_register
+    from iterativeclosestpoint_tpu_torch.utils.oracle import oracle_icp
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    for seed in (0, 3):
+        src, tgt, _ = make_registration_pair(n=ORACLE_N, seed=seed,
+                                             noise_sigma=0.02)
+        for mode in ("gui", "cli"):
+            t0 = time.perf_counter()
+            res = icp_register(src, tgt, dtype=torch.float64, mode=mode,
+                               max_iterations=30, center=False,
+                               nn_backend="bruteforce", device=DEVICE)
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = oracle_icp(src, tgt, max_iterations=30, mode=mode)
+            t_oracle = time.perf_counter() - t0
+            check(res.iterations == len(ref.history)
+                  and res.message == ref.message,
+                  f"11b seed {seed} {mode}: {res.iterations} iterations "
+                  f"({res.message}) against the oracle's "
+                  f"{len(ref.history)} ({ref.message})")
+            t_gap = max(float(np.abs(res.history_transform[i]
+                                     - h.transform).max())
+                        for i, h in enumerate(ref.history))
+            r_gap = max(abs(res.history_rmse[i] - h.rmse) / h.rmse
+                        for i, h in enumerate(ref.history))
+            same_valid = all(res.history_valid[i] == h.valid_points
+                             for i, h in enumerate(ref.history))
+            print(f"[11b oracle] seed {seed} {mode}: {res.iterations} "
+                  f"iterations ({res.message}) on the card in {t_card:.3f} s"
+                  f", the oracle in {t_oracle:.3f} s; max |T - T_oracle| "
+                  f"over every iteration {t_gap:.3e}, rmse {r_gap:.3e} "
+                  f"relative; inlier counts equal: {same_valid}", flush=True)
+            check(t_gap <= 1e-9 and r_gap <= 1e-9 and same_valid,
+                  f"11b seed {seed} {mode}: off the oracle")
+
+
 def phase_library_times(data10):
     """``--library-times``: the library yardstick (chunked ``torch.cdist``
     + argmin, one call each) at ``LIBRARY_SHAPES``, on the first rows of
@@ -3203,11 +3337,13 @@ def main() -> int:
     measured = phase_kernels(data, vdata, data10, issue_rate)
     stamp(3)
     paths = {}
+    rmse = {}
     for path, tag, d, zcol, kw in (
             ("headline", "4 main path", data, False, HEADLINE_KW),
             ("volume", "4b volume", vdata, True, HEADLINE_KW),
             ("plane", "4c plane", data, False, PLANE_KW)):
-        paths[path] = phase_main_path(tag, d, measured, zcol, kw)[0]
+        paths[path], res = phase_main_path(tag, d, measured, zcol, kw)
+        rmse[path] = res.final.rmse
         stamp(tag.split()[0])
     paths["plane_10m"] = phase_plane_10m(data10, measured)
     stamp("4d")
@@ -3225,6 +3361,10 @@ def main() -> int:
     paths.update(phase_multiprocess(data, data10, measured, issue_rate))
     del data10
     stamp(10)
+    paths["bench"] = phase_bench(measured, issue_rate, rmse["headline"])
+    stamp("11a")
+    phase_oracle()
+    stamp("11b")
 
     table = [
         ("colsweep_fused", "colsweep_fused.cu", 1165),

@@ -16,15 +16,36 @@ runs each kernel's plain PyTorch version.
                 records, viewers (HTML, PNG), the native host library,
                 profiling, the kernel smoke check and stage timing.
 - ``utils``   — settings, host reductions, synthetic fixtures, device
-                choice.
+                choice, and the f64 NumPy oracle of the reference.
 - ``cli``     — the ``icp-torch`` command (the JAX package's ``icp``
                 twin; ``--device cpu`` runs the plain versions).
+- ``bench``   — ``icp-torch bench``: the headline, volume and plane rows,
+                the kernel reports, the native octree baseline and the
+                parity check (the JAX package's root ``bench.py``).
 - ``convert`` — moves grids and loop carries between the two packages.
+
+The exports are the JAX package's.
 """
 
+from iterativeclosestpoint_tpu_torch.utils.config import AppSettings, ICPConfig
 from iterativeclosestpoint_tpu_torch.models.icp import ICPResult, icp_register
 from iterativeclosestpoint_tpu_torch.models.multiscale import (
     icp_register_multiscale,
 )
+from iterativeclosestpoint_tpu_torch.models.posegraph import (
+    optimize_pose_graph,
+    register_scans,
+)
 
-__all__ = ["ICPResult", "icp_register", "icp_register_multiscale"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "AppSettings",
+    "ICPConfig",
+    "ICPResult",
+    "icp_register",
+    "icp_register_multiscale",
+    "optimize_pose_graph",
+    "register_scans",
+    "__version__",
+]

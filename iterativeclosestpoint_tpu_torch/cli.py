@@ -22,6 +22,9 @@ reference's product surface (SURVEY.md §2, C9-C16):
   graph     — multi-scan joint registration: pairwise ICP edges (chain,
               overlap-detected, loop closure) and a pose-graph solve;
               merged LAS in scan 0's frame, pose JSON, scene viewer.
+  bench     — the benchmark (``bench.py``): headline, volume and plane
+              rows, kernel reports, the native octree baseline on this
+              host's CPU and the parity check; one JSON line last.
 
 ``run``/``graph --parallel dp|partition`` run over a mesh of one rank per
 visible card (``parallel/``; on ``--device cpu`` one CPU rank). The ranks
@@ -32,9 +35,6 @@ so ``--parallel none`` is the faster choice wherever one card holds the
 clouds. ``run --parallel partition --ingest`` streams both LAS files
 (``parallel/ingest.py``) for clouds beyond the host's memory, over the
 same mesh.
-
-Not ported yet, exiting non-zero with its ROADMAP item: ``bench`` (P9:
-``bench.py`` is the JAX package's benchmark).
 """
 
 from __future__ import annotations
@@ -51,11 +51,6 @@ import numpy as np
 
 def _print(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _not_ported(what: str, item: str) -> int:
-    _print(f"{what} is not ported to icp-torch yet (ROADMAP {item})")
-    return 1
 
 
 def _device_or_exit(args):
@@ -621,7 +616,11 @@ def cmd_smoke(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    return _not_ported("bench (the port's benchmark)", "P9")
+    """The benchmark (``bench.py``); its settings are the ``BENCH_*``
+    environment variables."""
+    from iterativeclosestpoint_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -797,9 +796,9 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--set", nargs="*", metavar="KEY=VALUE")
     se.set_defaults(fn=cmd_settings)
 
-    b = sub.add_parser("bench", help="the benchmark (not ported yet: "
-                                     "ROADMAP P9)")
-    b.add_argument("args", nargs=argparse.REMAINDER)
+    b = sub.add_parser("bench", help="the headline benchmark (BENCH_* "
+                                     "environment variables; last stdout "
+                                     "line JSON)")
     b.set_defaults(fn=cmd_bench)
 
     sm = sub.add_parser("smoke", help="kernel exactness check")

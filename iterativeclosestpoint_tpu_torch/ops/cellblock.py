@@ -151,6 +151,16 @@ def auto_resolution_data(
     return int(r)
 
 
+def auto_resolution(n_target: int, occupancy: int = 256) -> int:
+    """Grid resolution heuristic for surface-like clouds from the point
+    count alone (occupied cells scale ~k·R² with k ≈ 2 z-layers): R ≈
+    sqrt(M / occupancy), ~100-150 points per occupied cell. Powers of two
+    in [16, 512]."""
+    r = int(np.sqrt(max(n_target, 1) / occupancy))
+    r = 1 << max(4, min(9, int(np.ceil(np.log2(max(r, 16))))))
+    return r
+
+
 def build_cellgrid(target: np.ndarray, resolution: int, run_pad: int = 512,
                    dtype=torch.float32, device=None) -> CellGrid:
     """Host-side build: sort the target by linear cell id, CSR offsets,

@@ -63,3 +63,10 @@ def kabsch_masked(src, dst, mask, ps=None) -> torch.Tensor:
     """
     c_s, c_d, H, _ = _weighted_moments(src, dst, mask, ps)
     return rigid_from_covariance(H, c_s, c_d).to(src.dtype)
+
+
+def kabsch(src, dst) -> torch.Tensor:
+    """Unmasked Kabsch over full correspondence sets: ``kabsch_masked``
+    with every row an inlier, in ``src.dtype``."""
+    ones = torch.ones(src.shape[:1], dtype=src.dtype, device=src.device)
+    return kabsch_masked(src, dst, ones)

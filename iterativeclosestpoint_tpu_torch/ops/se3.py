@@ -13,6 +13,11 @@ from __future__ import annotations
 import torch
 
 
+def identity_transform(dtype=torch.float32, device=None) -> torch.Tensor:
+    """(4,4) identity transform."""
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble a (4,4) homogeneous transform from (3,3) R and (3,) t.
 
@@ -33,10 +38,59 @@ def apply_transform(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return points @ T[:3, :3].T + T[:3, 3]
 
 
+def rotation_angle_deg(T: torch.Tensor) -> torch.Tensor:
+    """Rotation angle (degrees) of the transform, from the trace formula
+    the reference records per iteration (icpengine.cpp:360-361):
+    ``acos((trace(R) - 1) / 2)``, the argument clipped to [-1, 1] against
+    round-off."""
+    c = (torch.trace(T[:3, :3]) - 1.0) / 2.0
+    return torch.rad2deg(torch.arccos(torch.clip(c, -1.0, 1.0)))
+
+
+def translation_norm(T: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm of the translation part (icpengine.cpp:362)."""
+    return torch.linalg.vector_norm(T[:3, 3])
+
+
+def se3_from_euler(yaw_deg, pitch_deg, roll_deg, tx, ty, tz,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """An SE(3) transform from Z-Y-X Euler angles (degrees) and a
+    translation, R = Rz(yaw) @ Ry(pitch) @ Rx(roll): the convention of the
+    reference's test-data generator (``test_icp.cpp:165-189``)."""
+    def rad(a):
+        return torch.deg2rad(torch.as_tensor(a, dtype=dtype, device=device))
+
+    yaw, pitch, roll = rad(yaw_deg), rad(pitch_deg), rad(roll_deg)
+    cz, sz = torch.cos(yaw), torch.sin(yaw)
+    cy, sy = torch.cos(pitch), torch.sin(pitch)
+    cx, sx = torch.cos(roll), torch.sin(roll)
+    one = torch.ones((), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    Rz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    Ry = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    Rx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    t = torch.stack([torch.as_tensor(v, dtype=dtype, device=device)
+                     for v in (tx, ty, tz)])
+    return make_transform(Rz @ Ry @ Rx, t)
+
+
 def invert_transform(T: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of a rigid transform: [Rᵀ, -Rᵀt]."""
     Rt = T[:3, :3].T
     return make_transform(Rt, -(Rt @ T[:3, 3]))
+
+
+def transform_error(T_a: torch.Tensor, T_b: torch.Tensor) -> torch.Tensor:
+    """Scalar discrepancy of two rigid transforms: max|R_a − R_b| +
+    max|t_a − t_b| (raw entries; ``registration_error`` is the lever-arm
+    free metric at UTM scale)."""
+    dR = (T_a[:3, :3] - T_b[:3, :3]).abs().max()
+    dt = (T_a[:3, 3] - T_b[:3, 3]).abs().max()
+    return dR + dt
 
 
 def _skew(w: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _LIB_PATH = _NATIVE_DIR / "libicpnative.so"
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
+_failure = ""  # why the library is unavailable: make's output or the loader's
 
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -31,20 +32,28 @@ _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
 
 def _build() -> bool:
+    global _failure
     try:
         subprocess.run(
             ["make", "-C", str(_NATIVE_DIR)],
             check=True,
             capture_output=True,
+            text=True,
             timeout=300,
         )
-        return _LIB_PATH.exists()
-    except (subprocess.SubprocessError, FileNotFoundError):
+    except subprocess.CalledProcessError as e:
+        _failure = f"make exited {e.returncode}:\n{e.stdout}{e.stderr}"
         return False
+    except (subprocess.SubprocessError, FileNotFoundError) as e:
+        _failure = f"make could not run: {e}"
+        return False
+    if not _LIB_PATH.exists():
+        _failure = f"make succeeded but {_LIB_PATH} is missing"
+    return _LIB_PATH.exists()
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _load_failed
+    global _lib, _load_failed, _failure
     if _lib is not None or _load_failed:
         return _lib
     if not _LIB_PATH.exists() and not _build():
@@ -52,7 +61,8 @@ def _load() -> Optional[ctypes.CDLL]:
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
+    except OSError as e:
+        _failure = f"loading {_LIB_PATH} failed: {e}"
         _load_failed = True
         return None
 
@@ -80,6 +90,13 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def native_failure() -> str:
+    """Why ``native_available()`` is false: the build's output (``make -C
+    native``) or the loader's error; empty while the library loads."""
+    _load()
+    return _failure
 
 
 def las_decode_native(

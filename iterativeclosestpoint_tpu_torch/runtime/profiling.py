@@ -10,7 +10,9 @@ Each query–candidate pair costs 9 f32 instructions (3 sub, 3 mul, 2 add,
 1 compare; the d² contract forbids FMA), and an SM issues 128 f32
 instructions per clock. The SM count comes from torch and the clock from
 ``nvidia-smi``, so the floor follows the card (132 SMs at 1,980 MHz on an
-H100 SXM). ``trace`` wraps ``torch.profiler`` and writes a Chrome trace.
+H100 SXM). The statistics-and-moments stage streams its inputs once and
+is held to the card's HBM bandwidth instead (``covariance_kernel_report``).
+``trace`` wraps ``torch.profiler`` and writes a Chrome trace.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 OPS_PER_PAIR = 9            # 3 sub, 3 mul, 2 add, 1 compare
 ISSUE_PER_SM_CLOCK = 128    # f32 instructions an SM issues per clock
+H100_SXM_HBM_BYTES_PER_S = 3.35e12  # the data sheet's HBM3 rate
 
 
 @dataclasses.dataclass
@@ -34,6 +37,8 @@ class CardSpec:
     name: str
     sms: int
     max_sm_clock_hz: float
+    hbm_bytes_per_s: float = H100_SXM_HBM_BYTES_PER_S
+    hbm_source: str = "H100 SXM data sheet"
 
     @property
     def issue_rate(self) -> float:
@@ -41,9 +46,22 @@ class CardSpec:
         return self.sms * ISSUE_PER_SM_CLOCK * self.max_sm_clock_hz
 
 
+def _hbm_rate(props):
+    """(bytes/s, source) of a card's memory: double data rate × bus width
+    × memory clock where torch reports both, else the H100 SXM data
+    sheet's 3.35 TB/s."""
+    clock_khz = getattr(props, "memory_clock_rate", 0)
+    bus_bits = getattr(props, "memory_bus_width", 0)
+    if clock_khz > 0 and bus_bits > 0:
+        return (2.0 * bus_bits / 8 * clock_khz * 1e3,
+                f"torch: {bus_bits}-bit bus at {clock_khz / 1e3:.0f} MHz")
+    return H100_SXM_HBM_BYTES_PER_S, "H100 SXM data sheet"
+
+
 def card_spec(device=None) -> CardSpec:
     """The spec of a CUDA card (default: the current one): its name and
-    SM count from torch, its maximum SM clock from ``nvidia-smi``."""
+    SM count from torch, its maximum SM clock from ``nvidia-smi``, its
+    HBM rate from torch's memory clock and bus width (``_hbm_rate``)."""
     from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -58,7 +76,7 @@ def card_spec(device=None) -> CardSpec:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.split()[0]
     return CardSpec(props.name, props.multi_processor_count,
-                    float(out) * 1e6)
+                    float(out) * 1e6, *_hbm_rate(props))
 
 
 @dataclasses.dataclass
@@ -103,6 +121,58 @@ def nn_kernel_report(
     tiles = -(-n_queries // tile_q)
     pairs = float(tiles * tile_q * slabs * trange)
     return KernelReport(name, elapsed_s, pairs, card or card_spec())
+
+
+@dataclasses.dataclass
+class StreamReport:
+    """A stage that streams its inputs once, held to the larger of its
+    bytes over the card's HBM rate and its operations over the issue
+    rate."""
+
+    name: str
+    elapsed_s: float
+    n_points: int
+    bytes_per_point: float
+    ops_per_point: float
+    card: CardSpec
+
+    @property
+    def bytes(self) -> float:
+        return self.n_points * self.bytes_per_point
+
+    @property
+    def floor_s(self) -> float:
+        return max(self.bytes / self.card.hbm_bytes_per_s,
+                   self.n_points * self.ops_per_point / self.card.issue_rate)
+
+    @property
+    def share(self) -> float:
+        """Share of the floor reached (1.0 = at the floor)."""
+        return self.floor_s / self.elapsed_s
+
+    def line(self) -> str:
+        rate = self.bytes / self.elapsed_s
+        return (
+            f"{self.name}: {self.elapsed_s * 1e3:.4f} ms, {self.n_points} "
+            f"points x {self.bytes_per_point:.0f} B = {rate / 1e9:.1f} GB/s,"
+            f" {rate / self.card.hbm_bytes_per_s:.4f} of "
+            f"{self.card.hbm_bytes_per_s / 1e12:.3f} TB/s HBM "
+            f"({self.card.hbm_source}); floor {self.floor_s * 1e3:.4f} ms on "
+            f"{self.card.name} -> {self.share:.3f} of the floor"
+        )
+
+
+def covariance_kernel_report(
+    n_points: int, elapsed_s: float, card: Optional[CardSpec] = None,
+) -> StreamReport:
+    """Report of the rejection-and-moments stage (hot loop B,
+    icpengine.cpp:263-337 in one pass: ``models/icp.py::
+    iteration_statistics`` and ``ops/kabsch.py::kabsch_masked``'s sums):
+    one streaming read of (src, matched, dist, weight) ≈ 28 B a point and
+    ~30 operations a point (mask, 5 masked sums, the 9-term outer
+    product), the JAX package's model of the same stage."""
+    return StreamReport("reject+moments", elapsed_s, n_points, 28.0, 30.0,
+                        card or card_spec())
 
 
 @contextlib.contextmanager

@@ -62,6 +62,15 @@ def test_build_cellgrid_matches_jax(dt):
         np.testing.assert_array_equal(b, a, err_msg=f)
 
 
+@pytest.mark.parametrize("n_target, occupancy", [
+    (0, 256), (1, 256), (1000, 256), (65_536, 256), (1_000_000, 256),
+    (10_000_000, 256), (10**9, 256), (200_000, 64), (3_000_000, 1000)])
+def test_auto_resolution_matches_jax(n_target, occupancy):
+    ours = tcb.auto_resolution(n_target, occupancy)
+    assert type(ours) is int
+    assert ours == jcb.auto_resolution(n_target, occupancy)
+
+
 def test_morton_matches_jax():
     cells = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1],
                       [1, 1, 1]])

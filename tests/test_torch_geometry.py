@@ -1,8 +1,12 @@
 """Port parity: SE(3) apply, registration error and Kabsch against the JAX
 package and the f64 NumPy oracle.
 
-Everything runs in f64 on the CPU; tolerance 1e-12 (both sides are f64
-closed forms of a few hundred terms, so only summation order differs)."""
+Everything runs on the CPU; tolerance 1e-12 in f64 (both sides are f64
+closed forms of a few hundred terms, so only summation order differs) and
+1e-6 in f32, times the value's scale where it exceeds 1 (a few ulp: the
+two libraries' sin, cos, arccos and 3×3 SVD may round differently)."""
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +14,9 @@ import pytest
 import torch
 from _torch_threads import one_torch_thread  # noqa: F401
 
+from iterativeclosestpoint_tpu.ops import se3 as jse3
 from iterativeclosestpoint_tpu.ops.kabsch import (
+    kabsch as jax_kabsch,
     kabsch_masked as jax_kabsch_masked,
     rigid_from_covariance as jax_rigid_from_covariance,
 )
@@ -24,10 +30,14 @@ from iterativeclosestpoint_tpu.utils.synth import (
     make_cloud,
     random_rigid_transform,
 )
-from iterativeclosestpoint_tpu_torch.ops import kabsch as tk
 from iterativeclosestpoint_tpu_torch.ops import se3 as tse3
 
+# ``ops.kabsch`` is the exported function (as in the JAX package), so the
+# module comes from the import system.
+tk = importlib.import_module("iterativeclosestpoint_tpu_torch.ops.kabsch")
+
 TOL = 1e-12
+TOL_BY_DTYPE = {"float32": 1e-6, "float64": 1e-12}
 
 
 def _t(x):
@@ -107,3 +117,77 @@ def test_kabsch_masked_matches_jax_and_oracle(case):
             ours, best_fit_transform(src[mask], dst[mask]), rtol=0,
             atol=1e-9)
     assert np.linalg.det(ours[:3, :3]) > 0
+
+
+_EULER = [(7.5, -3.25, 2.0, 1.5, -2.25, 0.75), (-170.0, 45.0, -60.0, 0.0, 0.0,
+                                               0.0)]
+
+
+def _se3_case(fn, dtype, k):
+    """(port value, JAX value) of the ``se3`` function ``fn`` on case k."""
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    Ta, Tb = (random_rigid_transform(seed=k + s, max_yaw_deg=60.0)
+              for s in (20, 21))
+    if fn == "identity_transform":
+        return tse3.identity_transform(td), jse3.identity_transform(jd)
+    if fn == "se3_from_euler":
+        return (tse3.se3_from_euler(*_EULER[k], dtype=td),
+                jse3.se3_from_euler(*_EULER[k], dtype=jd))
+    if fn == "transform_error":
+        return (tse3.transform_error(torch.as_tensor(Ta, dtype=td),
+                                     torch.as_tensor(Tb, dtype=td)),
+                jse3.transform_error(jnp.asarray(Ta, jd), jnp.asarray(Tb, jd)))
+    return (getattr(tse3, fn)(torch.as_tensor(Ta, dtype=td)),
+            getattr(jse3, fn)(jnp.asarray(Ta, jd)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("k", [0, 1])
+@pytest.mark.parametrize("fn", ["identity_transform", "rotation_angle_deg",
+                                "translation_norm", "se3_from_euler",
+                                "transform_error"])
+def test_se3_functions_match_jax(fn, k, dtype):
+    ours, ref = _se3_case(fn, dtype, k)
+    ref = np.asarray(ref)
+    assert ours.dtype == getattr(torch, dtype)
+    assert tuple(ours.shape) == ref.shape
+    # Relative to the value's scale: an angle of 26.67° in f32 has an ulp
+    # of 1.9e-6, and the two libraries' arccos may round it apart.
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0,
+                               atol=TOL_BY_DTYPE[dtype] * scale)
+
+
+def test_exports_are_the_jax_functions_counterparts():
+    """``ops``'s exports: identity is the identity, the Euler angles of a
+    transform come back through the angle and the norm."""
+    from iterativeclosestpoint_tpu_torch import ops
+
+    T = ops.se3_from_euler(0.0, 0.0, 30.0, 3.0, 4.0, 0.0,
+                           dtype=torch.float64)
+    assert float(ops.rotation_angle_deg(T)) == pytest.approx(30.0, abs=1e-12)
+    assert float(ops.translation_norm(T)) == pytest.approx(5.0, abs=1e-12)
+    assert torch.equal(ops.compose(T, ops.identity_transform(torch.float64)),
+                       T)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["rigid", "generic"])
+def test_kabsch_matches_jax(case, dtype):
+    """The unmasked fit in the input dtype (the JAX default accumulation
+    dtype), on unit-scale clouds so 1e-6 is a few f32 ulp."""
+    rng = np.random.default_rng(31)
+    src = rng.normal(size=(300, 3))
+    dst = (apply_transform_np(random_rigid_transform(seed=32), src)
+           + rng.normal(0, 0.01, size=src.shape)) if case == "rigid" \
+        else rng.normal(size=(300, 3))
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    ours = tk.kabsch(torch.as_tensor(src, dtype=td),
+                     torch.as_tensor(dst, dtype=td))
+    ref = np.asarray(jax_kabsch(jnp.asarray(src, jd), jnp.asarray(dst, jd)))
+    assert ours.dtype == td
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0,
+                               atol=TOL_BY_DTYPE[dtype])
+    if dtype == "float64":
+        np.testing.assert_allclose(ours.numpy(), best_fit_transform(src, dst),
+                                   rtol=0, atol=1e-9)

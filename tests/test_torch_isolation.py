@@ -5,6 +5,7 @@ the CPU (through the library and through ``icp-torch``), and
 ``chip_smoke.py`` refuses to run without a card. Each check runs in a
 fresh interpreter, where nothing else has imported JAX yet."""
 
+import json
 import os
 import subprocess
 import sys
@@ -34,7 +35,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "    'runtime.session', 'runtime.profiling', 'runtime.smoke',\n"
         "    'models.posegraph', 'ops.hashgrid', 'ops.cellblock',\n"
         "    'parallel', 'parallel.mesh', 'parallel.sharded',\n"
-        "    'parallel.partition', 'parallel.posegraph', 'parallel.ingest'}\n"
+        "    'parallel.partition', 'parallel.posegraph', 'parallel.ingest',\n"
+        "    'utils.oracle', 'bench'}\n"
         "missing = {e for e in expected if p.__name__ + '.' + e not in names}\n"
         "assert not missing, missing\n"
         "for name in names:\n"
@@ -48,6 +50,46 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "LOADED []" in r.stdout
+
+
+PACKAGE_EXPORTS = ["AppSettings", "ICPConfig", "ICPResult", "icp_register",
+                   "icp_register_multiscale", "optimize_pose_graph",
+                   "register_scans", "__version__"]
+OPS_EXPORTS = ["apply_transform", "compose", "identity_transform",
+               "rotation_angle_deg", "se3_from_euler", "translation_norm",
+               "kabsch", "kabsch_masked", "nn_bruteforce"]
+
+
+def test_exports_are_the_jax_packages():
+    """The port's package and ``ops`` export the JAX package's names, each
+    bound to the port's own object, without loading JAX."""
+    code = (
+        "import json, sys\n"
+        "import iterativeclosestpoint_tpu_torch as p\n"
+        "from iterativeclosestpoint_tpu_torch import ops\n"
+        "for mod, names in ((p, p.__all__), (ops, ops.__all__)):\n"
+        "    for n in names:\n"
+        "        v = getattr(mod, n)\n"
+        "        assert n == '__version__' or v.__module__.startswith(\n"
+        "            'iterativeclosestpoint_tpu_torch.'), (n, v.__module__)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'iterativeclosestpoint_tpu'"
+        " or m.startswith('iterativeclosestpoint_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('EXPORTS', json.dumps([p.__all__, ops.__all__,"
+        " p.__version__]))\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+    line = next(ln for ln in r.stdout.splitlines()
+                if ln.startswith("EXPORTS "))
+    pkg, ops, version = json.loads(line[len("EXPORTS "):])
+    assert pkg == PACKAGE_EXPORTS and ops == OPS_EXPORTS
+    import iterativeclosestpoint_tpu as jax_pkg
+    import iterativeclosestpoint_tpu.ops as jax_ops
+
+    assert pkg == jax_pkg.__all__ and ops == jax_ops.__all__
+    assert version == jax_pkg.__version__
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
