@@ -83,7 +83,13 @@ Phases, one or more lines each:
    the two-stage plane run in segments of 3 equals the one-dispatch run,
    a 5 + 5 iteration run resumed through ``resume_carry`` equals the
    10-iteration run (history and transform, bit for bit), and two
-   estimations of the 1M target's normals are bit-equal (timed);
+   estimations of the 1M target's normals are bit-equal (timed). The
+   JAX package's non-finite case (n=1000, seed 8, one NaN source
+   coordinate) through ``icp_register`` (pallas and bruteforce, f32 and
+   f64) and ``icp_register_multiscale`` (pallas, f32) stops with code 6 after
+   0 iterations and ``success=False`` on the card and on the CPU alike,
+   and the public ``kabsch`` returns R and t of NaN on the card; every
+   shape those runs launched is held against plain;
 7. the product surface, ``icp-torch`` (``cli.main``) in this process in a
    temporary directory: (a) ``synth`` a 1M-point terrain pair as LAS
    (seed 7, noise 0.02, the CLI's default extent of 50 m) and ``info
@@ -215,7 +221,13 @@ Phases, one or more lines each:
    card against the port's ``utils/oracle.py`` on 20,000-point pairs
    (seeds 0 and 3, gui and cli): the same iteration count, stop message
    and inlier counts, every iteration's transform within 1e-9 (and its
-   RMSE within 1e-9 relative);
+   RMSE within 1e-9 relative). Then ``nn_backend="pallas"`` at f64 on a
+   4,000-point pair (seed 5, noise 0.02) whose uncertified queries reach
+   the sweep's brute tiers (the plain f64 brute force), point and plane,
+   10 iterations, on the card against the CPU: the brute tier fires at
+   f64, the same iterations and stop code, every point transform within
+   1e-9 and the plane's final one within 1e-8; every shape the card's
+   runs launched is held against plain;
 12. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
    the main paths (headline, volume, plane, plane_10m, product, graph,
    backends, phase 9's mesh_dp, mesh_partition, mesh_repair, mesh_graph,
@@ -290,6 +302,11 @@ SLOTWISE_TILES = 512    # phase 3: tiles of that slot-wise K2 launch
 # (the scan keeps 6 resident)
 K3_CTAS_PER_SM = (2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32, 48)
 BOX_N = 50_000          # phase 6 uniform box
+# phase 6: the JAX package's non-finite case (tests/test_icp_pairwise.py):
+# its n=1000, seed 8 pair with source[13, 1] = NaN
+NONFINITE = dict(n=1000, seed=8)
+# phase 11b: a pair whose f64 pallas run reaches the sweep's brute tiers
+F64_PALLAS = dict(n=4000, seed=5, noise_sigma=0.02)
 REPAIR_N = 250_000      # phase 5 cloud size
 CARD_CPU_N = 60_000     # phase 6 cloud size
 PRODUCT_N = 1_000_000   # phase 7 LAS pair (icp-torch synth)
@@ -1340,6 +1357,159 @@ def phase_card_vs_cpu(data):
     check(same_seg, "segmented plane run differs from one dispatch")
     check(same_resume, "resumed run differs from the uninterrupted one")
     check(same_normals, "normal estimation is not deterministic")
+
+
+def _spy_pallas_grids():
+    """Keep the grids each pallas run builds (``make_pallas_nn_device`` as
+    ``models/icp.py`` calls it), to hold the run's launches on them.
+    Returns (kept, restore); kept holds (target_local, (fn, state, R))."""
+    from iterativeclosestpoint_tpu_torch.models import icp as ticp
+
+    orig = ticp.make_pallas_nn_device
+    kept = []
+
+    def spy(target_local, *a, **k):
+        out = orig(target_local, *a, **k)
+        kept.append((np.asarray(target_local, np.float32), out))
+        return out
+
+    ticp.make_pallas_nn_device = spy
+
+    def restore():
+        ticp.make_pallas_nn_device = orig
+
+    return kept, restore
+
+
+def _hold_small_runs(tag, by_shape, measured, issue_rate, kept):
+    """Hold every shape ``by_shape`` launched that no phase held yet, on
+    the grids the runs built (``kept``, small targets): K1 on a layout of
+    the target + N(0, 0.02), K2 on the coarse grid at each launched tile
+    count (repair queries), K3 against the whole target."""
+    from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
+        grouped_tile_order_device,
+    )
+    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import sweep_window
+    from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
+        use_fused_sweep,
+    )
+
+    tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
+    unheld = _unheld(by_shape, measured)
+    print(f"[{tag}] launches by shape {sorted(by_shape.items())}; shapes "
+          f"no phase held yet: {unheld}", flush=True)
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(9)
+    for tgt_local, (_, (grid, coarse, _), R) in kept:
+        left = _unheld(by_shape, measured)
+        if not left:
+            break
+        if grid.tgt_t.device.type != "cuda":  # a CPU run's grids
+            continue
+        tgt_dev = torch.as_tensor(tgt_local, device=dev)
+        m = tgt_dev.shape[0]
+        trange = grid.tgt_t.shape[1] - m
+        ctrange = coarse.tgt_t.shape[1] - m
+        gen = torch.Generator(device=dev).manual_seed(7)
+        q = tgt_dev + 0.02 * torch.randn(tgt_dev.shape, generator=gen,
+                                         device=dev)
+        rows, _ = grouped_tile_order_device(q, grid.origin, grid.cell_size,
+                                            resolution=R)
+        ql = q[rows].contiguous()
+        fused = use_fused_sweep(4, trange)
+        if ("colsweep_fused", (4, trange)) in [
+                (nm, _shape_key(nm, sh)) for nm, sh in left]:
+            _sweep_k1(measured, sweep_window(
+                ql, grid, resolution=R, tile_q=128, slabs=4, trange=trange,
+                fused=True), grid.tgt_t, 4, trange, f"{tpu}:1165",
+                issue_rate, plain_reps=2)
+        for nm, sh in left:
+            if nm != "colsweep" or sh[1] != 4 or sh[2] not in (trange,
+                                                               ctrange):
+                continue
+            ct, tr = sh[0], sh[2]
+            g, r_g = (coarse, max(R // 4, 8)) if tr == ctrange and (
+                tr != trange or fused) else (grid, R)
+            qq = torch.as_tensor(_repair_queries(
+                tgt_local, float(grid.cell_size), ct * 128, rng),
+                device=dev)
+            order, _ = grouped_tile_order_device(
+                qq, grid.origin, grid.cell_size, resolution=R)
+            _sweep_k2(measured, sweep_window(
+                qq[order][:ct * 128], g, resolution=r_g, tile_q=128,
+                slabs=4, trange=tr, fused=False), g.tgt_t, 4, tr, [ct],
+                f"{tpu}:1025", issue_rate, plain_reps=2)
+        for nm, sh in _unheld(by_shape, measured):
+            if nm == "brute_nn" and sh[1] == m:
+                qk = ql.repeat(-(-sh[0] // ql.shape[0]), 1)[:sh[0]]
+                _hold_k3(measured, qk.contiguous(), tgt_dev, issue_rate,
+                         f"{tpu}:1103", full=False)
+    check(not _unheld(by_shape, measured), f"{tag}: a shape is unheld")
+
+
+def _outcome(fn, *args, **kw):
+    """(stop code, iterations, success, message) of a run, or the
+    exception it raised as text (printed, then failed by the caller)."""
+    try:
+        r = fn(*args, **kw)
+    except Exception as e:
+        return f"raised {type(e).__name__}: {e}"
+    r = getattr(r, "final", r)
+    return r.stop_reason, r.iterations, r.success, r.message
+
+
+def phase_nonfinite(measured, issue_rate):
+    """Phase 6's non-finite case: one NaN source coordinate stops the run
+    with NUMERICAL_ERROR (6) before any iteration is recorded, on the card
+    as on the CPU, as the JAX package's loop does; the public ``kabsch``
+    returns a NaN transform on the card."""
+    from iterativeclosestpoint_tpu_torch import (
+        icp_register,
+        icp_register_multiscale,
+    )
+    from iterativeclosestpoint_tpu_torch.models.icp import NUMERICAL_ERROR
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops.kabsch import kabsch
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    src, tgt, _ = make_registration_pair(**NONFINITE)
+    src = src.copy()
+    src[13, 1] = np.nan
+    cases = [(f"icp_register {be} {str(dt)[6:]}", icp_register,
+              dict(nn_backend=be, dtype=dt))
+             for be in ("pallas", "bruteforce")
+             for dt in (torch.float32, torch.float64)]
+    cases.append(("icp_register_multiscale pallas float32",
+                  icp_register_multiscale,
+                  dict(nn_backend="pallas", dtype=torch.float32)))
+    kept, restore = _spy_pallas_grids()
+    sk.reset_launches()
+    try:
+        card = [_outcome(fn, src, tgt, max_iterations=10, device=DEVICE,
+                         **kw) for _, fn, kw in cases]
+    finally:
+        restore()
+    by_shape = dict(sk.LAUNCH_SHAPES)
+    cpu = [_outcome(fn, src, tgt, max_iterations=10, device="cpu", **kw)
+           for _, fn, kw in cases]
+    for (label, _, _), a, b in zip(cases, card, cpu):
+        print(f"[6 nonfinite] {label}, source[13, 1] = NaN: card {a}; "
+              f"cpu {b}", flush=True)
+    for (label, _, _), a, b in zip(cases, card, cpu):
+        check(a == b and a[:3] == (NUMERICAL_ERROR, 0, False),
+              f"{label}: card {a}, cpu {b}; expected stop code "
+              f"{NUMERICAL_ERROR} after 0 iterations on both")
+    dev = torch.device(DEVICE)
+    T = kabsch(torch.as_tensor(src, device=dev),
+               torch.as_tensor(tgt, device=dev)).cpu().numpy()
+    print(f"[6 nonfinite] kabsch on the card: rotation and translation "
+          f"all NaN {bool(np.isnan(T[:3]).all())}, last row {T[3]}; "
+          f"launches {dict(sk.LAUNCHES)}", flush=True)
+    check(bool(np.isnan(T[:3]).all()) and T[3].tolist() == [0, 0, 0, 1],
+          "kabsch on a NaN source is not the NaN transform")
+    _hold_small_runs("6 nonfinite", by_shape, measured, issue_rate, kept)
 
 
 def _cli(*argv, expect_ok=True):
@@ -3276,6 +3446,75 @@ def phase_oracle():
                   f"11b seed {seed} {mode}: off the oracle")
 
 
+def phase_f64_pallas(measured, issue_rate):
+    """Phase 11b's f64 pallas case: ``nn_backend="pallas"`` at f64 on a
+    pair whose uncertified queries reach the sweep's brute tiers, which
+    run the plain f64 brute force (``nn_exact``), point and plane, 10
+    iterations, on the card against the CPU: the brute tier fires at f64,
+    the same iterations and stop code, every iteration's transform within
+    1e-9 (point) and the final one within 1e-8 (plane)."""
+    from iterativeclosestpoint_tpu_torch import icp_register
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops import sweep_nn
+    from iterativeclosestpoint_tpu_torch.utils.synth import (
+        make_registration_pair,
+    )
+
+    src, tgt, _ = make_registration_pair(**F64_PALLAS)
+    exact = sweep_nn.nn_exact
+    calls = []
+
+    def counted(query, target):
+        calls.append((str(query.dtype), query.shape[0], target.shape[0]))
+        return exact(query, target)
+
+    kept, restore = _spy_pallas_grids()
+    by_shape = {}
+    runs = {}
+    try:
+        for est in ("point", "plane"):
+            kw = dict(dtype=torch.float64, nn_backend="pallas",
+                      estimator=est, max_iterations=10)
+            sweep_nn.nn_exact = counted
+            sk.reset_launches()
+            t0 = time.perf_counter()
+            card = icp_register(src, tgt, device=DEVICE, **kw)
+            t_card = time.perf_counter() - t0
+            sweep_nn.nn_exact = exact
+            for key, n in sk.LAUNCH_SHAPES.items():
+                by_shape[key] = by_shape.get(key, 0) + n
+            t0 = time.perf_counter()
+            cpu = icp_register(src, tgt, device="cpu", **kw)
+            runs[est] = (card, t_card, cpu, time.perf_counter() - t0,
+                         list(calls), dict(sk.LAUNCHES))
+            del calls[:]
+    finally:
+        restore()
+        sweep_nn.nn_exact = exact
+    for est, tol in (("point", 1e-9), ("plane", 1e-8)):
+        card, t_card, cpu, t_cpu, brute, launches = runs[est]
+        gap_all = float(np.abs(card.history_transform
+                               - cpu.history_transform).max())
+        gap = float(np.abs(card.transform - cpu.transform).max())
+        print(f"[11b f64 pallas] {est}, {len(src)} points: card "
+              f"{card.iterations} iterations ({card.message}, stop "
+              f"{card.stop_reason}) in {t_card:.3f} s, cpu "
+              f"{cpu.iterations} ({cpu.message}, stop {cpu.stop_reason}) "
+              f"in {t_cpu:.3f} s; brute-tier calls on the card "
+              f"{len(brute)} {sorted(set(brute))}; kernel launches "
+              f"{launches}; max |T_card - T_cpu| over every iteration "
+              f"{gap_all:.3e}, final {gap:.3e}", flush=True)
+        check(brute and all(c[0] == "torch.float64" for c in brute),
+              f"11b f64 pallas {est}: no brute tier, or one below f64")
+        check((card.iterations, card.stop_reason)
+              == (cpu.iterations, cpu.stop_reason),
+              f"11b f64 pallas {est}: iterations or stop code differ")
+        held = gap_all if est == "point" else gap
+        check(held <= tol,
+              f"11b f64 pallas {est}: card and cpu differ by {held}")
+    _hold_small_runs("11b f64 pallas", by_shape, measured, issue_rate, kept)
+
+
 def phase_library_times(data10):
     """``--library-times``: the library yardstick (chunked ``torch.cdist``
     + argmin, one call each) at ``LIBRARY_SHAPES``, on the first rows of
@@ -3350,6 +3589,7 @@ def main() -> int:
     phase_repair()
     stamp(5)
     phase_card_vs_cpu(data)
+    phase_nonfinite(measured, issue_rate)
     stamp(6)
     paths["product"] = phase_product(measured, issue_rate)
     stamp(7)
@@ -3364,6 +3604,7 @@ def main() -> int:
     paths["bench"] = phase_bench(measured, issue_rate, rmse["headline"])
     stamp("11a")
     phase_oracle()
+    phase_f64_pallas(measured, issue_rate)
     stamp("11b")
 
     table = [

@@ -39,13 +39,18 @@ def rigid_from_covariance(H: torch.Tensor, c_src: torch.Tensor,
     Reflection handling follows the reference GUI form: flip V's third
     column when det(V Uᵀ) < 0. ``torch.linalg.svd`` sorts the singular
     values, so the third column is the smallest one's, as with JacobiSVD.
+
+    A non-finite H (a NaN or inf coordinate) gives R and t of NaN, as the
+    JAX package's SVD does; ``torch.linalg.svd`` would raise instead, so
+    it is fed a zero matrix then (no host read decides it).
     """
-    U, _, Vh = torch.linalg.svd(H)
+    fin = torch.isfinite(H).all()
+    U, _, Vh = torch.linalg.svd(torch.where(fin, H, torch.zeros_like(H)))
     V = Vh.T
     R = V @ U.T
     sign = torch.where(torch.linalg.det(R) < 0, -1.0, 1.0).to(H.dtype)
     V = torch.cat([V[:, :2], V[:, 2:] * sign], dim=1)
-    R = V @ U.T
+    R = torch.where(fin, V @ U.T, torch.full_like(R, float("nan")))
     t = c_dst - R @ c_src
 
     T = torch.eye(4, dtype=H.dtype, device=H.device)

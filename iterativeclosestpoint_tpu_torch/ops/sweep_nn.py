@@ -16,8 +16,10 @@ its dilated z-span, through the full R³ CSR. A found distance within the
 query's distance to the edge of its guaranteed window (edges at the grid
 or target boundary count as infinite) certifies the result exact.
 Uncertified queries go through the repair chain: a slab re-sweep on the
-4×-coarser grid, then budgeted brute force (K3), then an all-pairs
-fallback.
+4×-coarser grid, then budgeted brute force, then an all-pairs fallback.
+Both brute stages run in the query's dtype (``nn_exact``): K3 at f32, the
+plain ``nn_bruteforce`` at f64, as the JAX repair's ``nn_bruteforce``
+serves both.
 
 The JAX package gates each repair stage with ``lax.cond`` on a device
 count. Here each gate reads its count to the host (``int(...)``) and the
@@ -47,7 +49,7 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
     colsweep,
-    nn_brute,
+    nn_exact,
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     _COARSE_TRANGE_CAP,
@@ -475,7 +477,7 @@ def nn_colsweep_exact(
         """Brute-repair tiles [lo, lo+nb) of the bad-first permutation."""
         tperm = torch.argsort((~bad_tile2).to(torch.int32), stable=True)
         rows = tperm[lo:lo + nb]
-        bi, bd = nn_brute(q_t[rows].reshape(nb * tile_q, 3), target)
+        bi, bd = nn_exact(q_t[rows].reshape(nb * tile_q, 3), target)
         live = (lo + torch.arange(nb, device=dev) < n_bad_t2)[:, None]
         m_t[rows] = torch.where(live[..., None],
                                 tgt6(bi).reshape(nb, tile_q, 6), m_t[rows])
@@ -492,7 +494,7 @@ def nn_colsweep_exact(
                     brute_repair(min(p * bt, t - nb), nb)
 
     if global_fallback and n_bad_t2 > kmax:
-        bi, bd = nn_brute(query.contiguous(), target)
+        bi, bd = nn_exact(query, target)
         m_t = tgt6(bi).reshape(t, tile_q, 6)
         d_t = bd.reshape(t, tile_q)
 

@@ -442,8 +442,6 @@ def prepare_partition(
         raise ValueError(f"unknown local_search {local_search!r}")
     resolution = trange = coarse_trange = 0
     if local_search == "pallas":
-        if not f32:
-            raise ValueError("local_search='pallas' runs in float32 only")
         p = resolve_slab_grid_params(
             [tgt_local[s] for s in sels if len(s)], n_dev=n_dev,
             n_queries=(n_queries_hint or len(target)),
@@ -562,8 +560,6 @@ def icp_register_partitioned(
                     "parameters from the strided file sample)")
             params = dict(resolution=0, trange=0, coarse_trange=0,
                           fine_kernel="sweep")
-        if ls == "pallas" and dtype != torch.float32:
-            raise ValueError("local_search='pallas' runs in float32 only")
         shards = [None if x is None else x.to(mesh.devices[r], dtype)
                   for r, x in enumerate(source_global[0])]
         weights = [None if x is None else x.to(mesh.devices[r], dtype)

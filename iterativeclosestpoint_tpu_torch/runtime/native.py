@@ -5,15 +5,24 @@ the >10x points/s/chip target, BASELINE.md) and a fast LAS record decoder.
 The shared library is built on demand with the repo's ``native/Makefile``;
 all entry points degrade gracefully when no toolchain is available.
 
-The port's own copy of the JAX package's ``runtime/native.py``: it loads
-the same ``native/libicpnative.so`` (host code, not the card) and falls
-back the same way, so the LAS decoder and the baselines agree across the
-two packages.
+The port's own copy of the JAX package's ``runtime/native.py``. It builds
+the same source with the same Makefile and flags (host code, not the
+card) and falls back the same way, so the LAS decoder and the baselines
+agree across the two packages. Its library has a name of its own,
+``native/libicpnative_torch.so``: a build of the JAX package's
+``libicpnative.so`` (``make`` writes that file in place) never touches
+it. Processes that start together build it once: the build holds an
+exclusive lock on ``native/.libicpnative_torch.lock``, looks for the
+library again once it holds the lock, and builds under a temporary name
+that ``os.replace`` moves into place, so no loader opens a half-written
+file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
@@ -21,7 +30,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_LIB_PATH = _NATIVE_DIR / "libicpnative.so"
+_LIB_PATH = _NATIVE_DIR / "libicpnative_torch.so"
+_LOCK_PATH = _NATIVE_DIR / ".libicpnative_torch.lock"
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 _failure = ""  # why the library is unavailable: make's output or the loader's
@@ -34,22 +44,33 @@ _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 def _build() -> bool:
     global _failure
     try:
-        subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
-            check=True,
-            capture_output=True,
-            text=True,
-            timeout=300,
-        )
-    except subprocess.CalledProcessError as e:
-        _failure = f"make exited {e.returncode}:\n{e.stdout}{e.stderr}"
+        lock = open(_LOCK_PATH, "a")
+    except OSError as e:
+        _failure = f"cannot open the build lock {_LOCK_PATH}: {e}"
         return False
-    except (subprocess.SubprocessError, FileNotFoundError) as e:
-        _failure = f"make could not run: {e}"
-        return False
-    if not _LIB_PATH.exists():
-        _failure = f"make succeeded but {_LIB_PATH} is missing"
-    return _LIB_PATH.exists()
+    with lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if _LIB_PATH.exists():  # another process built it meanwhile
+            return True
+        tmp = _NATIVE_DIR / f".libicpnative_torch.{os.getpid()}.tmp.so"
+        try:
+            subprocess.run(
+                ["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp.name}"],
+                check=True,
+                capture_output=True,
+                text=True,
+                timeout=300,
+            )
+            os.replace(tmp, _LIB_PATH)
+        except subprocess.CalledProcessError as e:
+            _failure = f"make exited {e.returncode}:\n{e.stdout}{e.stderr}"
+            return False
+        except (subprocess.SubprocessError, OSError) as e:
+            _failure = f"make could not run or its output is missing: {e}"
+            return False
+        finally:
+            tmp.unlink(missing_ok=True)
+    return True
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -5,11 +5,20 @@ the JAX package on the same inputs. Mirrors ``test_las_io.py``,
 Everything here is host code, so the bar is equality: the port's LAS
 bytes are the JAX package's bytes, and every decoder, downsampler and
 native baseline returns identical arrays. The native baselines skip where
-no toolchain builds ``native/libicpnative.so``, as ``test_native.py``
-does.
+no toolchain builds the port's ``native/libicpnative_torch.so``, as
+``test_native.py`` does for the JAX package's ``libicpnative.so``.
+
+The tests that call both packages' native entry points take the
+``both_native_loaded`` fixture. Under ``pytest -n`` every worker collects
+every module, and ``test_native.py`` makes the JAX package's loader build
+its library at collection, in place and without a lock, in each worker at
+once; a loader that lost that race keeps its failure for the whole
+process. No test starts before every worker has collected, so by then the
+file is whole, and the fixture has the JAX loader try it once more.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -29,6 +38,20 @@ from iterativeclosestpoint_tpu_torch.runtime import native as tnative
 UTM = np.array([500_000.0, 4_000_000.0, 1_200.0])
 needs_native = pytest.mark.skipif(
     not tnative.native_available(), reason="native toolchain unavailable")
+
+
+@pytest.fixture(scope="module")
+def both_native_loaded():
+    """The port's library loaded, then the JAX package's: reloaded once if
+    its loader kept a failure from the build race at collection. A library
+    that still does not load fails the test."""
+    if not tnative.native_available():
+        pytest.fail("the port's native library does not load: "
+                    + tnative.native_failure())
+    if jnative._load_failed:
+        importlib.reload(jnative)
+    assert jnative.native_available(), (
+        "the JAX package's native library does not load")
 
 
 def _same_header(a, b):
@@ -107,7 +130,7 @@ def test_signature_validation(tmp_path):
 
 
 @needs_native
-def test_native_decoder_equal(tmp_path):
+def test_native_decoder_equal(tmp_path, both_native_loaded):
     """The native decoder gives the same array through both packages (one
     library), and agrees with the numpy decoder up to the FMA rounding
     ``test_las_io.py`` allows."""
@@ -131,7 +154,7 @@ def test_downsample_equal(fn, arg):
 
 
 @needs_native
-def test_native_octree_nn_equal():
+def test_native_octree_nn_equal(both_native_loaded):
     tgt = make_cloud(4000, seed=40)
     q = make_cloud(1000, seed=41)
     np.testing.assert_array_equal(tnative.octree_nn_baseline(tgt, q),
@@ -140,7 +163,7 @@ def test_native_octree_nn_equal():
 
 @needs_native
 @pytest.mark.parametrize("mode", ["gui", "cli"])
-def test_native_octree_icp_equal(mode):
+def test_native_octree_icp_equal(mode, both_native_loaded):
     src, tgt, _ = make_registration_pair(n=1500, seed=42, noise_sigma=0.02)
     a = tnative.octree_icp_baseline(src, tgt, max_iterations=25, mode=mode,
                                     return_registered=True)

@@ -201,8 +201,8 @@ def test_exact_chain_gathers_the_winners_normals(monkeypatch):
         jnp.asarray(q), jnp.asarray(tgt, jnp.float32), grids[0][0],
         grids[1][0], jnp.asarray(nrm), **kw)
     brute_calls = []
-    real_brute = tsn.nn_brute
-    monkeypatch.setattr(tsn, "nn_brute", lambda *a: (
+    real_brute = tsn.nn_exact
+    monkeypatch.setattr(tsn, "nn_exact", lambda *a: (
         brute_calls.append(1), real_brute(*a))[1])
     tm, tn, _ = tsn.nn_colsweep_exact(
         torch.as_tensor(q), torch.as_tensor(tgt, dtype=torch.float32),
