@@ -40,6 +40,7 @@ same mesh.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -212,9 +213,6 @@ def _run_partition_ingest(args, cfg, dev) -> int:
 
 def cmd_run(args) -> int:
     from iterativeclosestpoint_tpu_torch.runtime.metrics import MetricsWriter
-    from iterativeclosestpoint_tpu_torch.runtime.session import (
-        RegistrationSession,
-    )
     from iterativeclosestpoint_tpu_torch.utils.config import AppSettings
 
     settings = AppSettings.load(args.settings) if args.settings else AppSettings()
@@ -235,8 +233,39 @@ def cmd_run(args) -> int:
     if args.ingest:
         return _run_partition_ingest(args, cfg, dev)
 
+    from iterativeclosestpoint_tpu_torch.runtime.profiling import trace
+
     metrics = MetricsWriter(jsonl_path=args.metrics, console=True,
                             stream=sys.stdout)
+    with _stage_spans(args) as col, trace(args.profile, col):
+        res = _run_session(args, settings, dev, metrics)
+    if args.metrics and col is not None:
+        # Each span's seconds, calls and counters over the whole command.
+        metrics.event("stages", stages=col.summary())
+    return 0 if res.success else 1
+
+
+def _stage_spans(args):
+    """The collector of ``run``'s spans for ``--profile`` and
+    ``--metrics``: the caller's where one is active, else a new unsynced
+    one; none without either flag."""
+    from iterativeclosestpoint_tpu_torch.runtime.timing import active, collect
+
+    if active() is not None:
+        return contextlib.nullcontext(active())
+    if args.profile or args.metrics:
+        return collect(sync=False)
+    return contextlib.nullcontext(None)
+
+
+def _run_session(args, settings, dev, metrics):
+    """Load, register and write what ``run`` asks for; returns the
+    registration's result."""
+    from iterativeclosestpoint_tpu_torch.runtime.session import (
+        RegistrationSession,
+    )
+
+    cfg = settings.icp
     sess = RegistrationSession(settings=settings, metrics=metrics,
                                device=dev)
     sess.load_source(args.source, stride=args.stride)
@@ -275,21 +304,18 @@ def cmd_run(args) -> int:
             initial = ckpt["transform"]
             _print(f"resuming from iteration {ckpt['iteration']}")
 
-    from iterativeclosestpoint_tpu_torch.runtime.profiling import trace
-
-    with trace(args.profile):
-        res = sess.run(
-            config=cfg,
-            multiscale=args.multiscale,
-            checkpoint_path=args.checkpoint,
-            initial_transform=initial,
-            live_every=args.live_every,
-            # Mid-run viewer exports (segment-boundary refresh) when both
-            # --live-every and --html are given.
-            live_html=(args.html if args.live_every else None),
-            parallel=args.parallel,
-            **run_extra,
-        )
+    res = sess.run(
+        config=cfg,
+        multiscale=args.multiscale,
+        checkpoint_path=args.checkpoint,
+        initial_transform=initial,
+        live_every=args.live_every,
+        # Mid-run viewer exports (segment-boundary refresh) when both
+        # --live-every and --html are given.
+        live_html=(args.html if args.live_every else None),
+        parallel=args.parallel,
+        **run_extra,
+    )
 
     if args.output:
         sess.save_result(args.output, rebase=args.rebase)
@@ -309,7 +335,7 @@ def cmd_run(args) -> int:
     if args.html:
         sess.export_html(args.html)
         _print(f"interactive viewer written to {args.html}")
-    return 0 if res.success else 1
+    return res
 
 
 def cmd_synth(args) -> int:
@@ -643,7 +669,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--report", help="transform report path (.txt)")
     r.add_argument("--html", help="write a standalone interactive viewer "
                                   "(orbit/pan/zoom + iteration replay)")
-    r.add_argument("--metrics", help="JSONL metrics path")
+    r.add_argument("--metrics", help="JSONL metrics path (the iterations, "
+                   "then a 'stages' event of the run's spans)")
     r.add_argument("--history",
                    help="run-history JSONL (for `icp-torch status`)")
     r.add_argument("--checkpoint", help="write checkpoint after the run")
@@ -701,7 +728,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--settings", help="settings JSON path")
     r.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler Chrome trace to "
-                        "DIR/trace.json")
+                        "DIR/trace.json, with the run's stage spans as a "
+                        "track of their own")
     r.set_defaults(fn=cmd_run)
 
     s = sub.add_parser("synth", help="generate a test pair with known SE(3)")

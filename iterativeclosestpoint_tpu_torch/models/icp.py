@@ -59,7 +59,10 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_exact
 from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
-from iterativeclosestpoint_tpu_torch.runtime.timing import stage
+from iterativeclosestpoint_tpu_torch.runtime.timing import (
+    registration_call,
+    stage,
+)
 from iterativeclosestpoint_tpu_torch.utils import hostmath
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 
@@ -233,6 +236,13 @@ def _plane_global(src, dst, nrm, valid, ps=None):
     return se3_exp(delta).to(f)
 
 
+def _const(x, dtype, device):
+    """A 0-d tensor of ``x`` on ``device``: on the card its host-to-device
+    copy waits for the card, so it is a ``read/const`` span."""
+    with stage("read/const"):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+
 def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
              max_iterations: int, tolerance: float, sigma_multiplier: float,
              widen_first: bool, estimator: str = "point",
@@ -254,7 +264,7 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
     H = max_iterations
     if carry is None:
         T_cum = torch.eye(4, dtype=f, device=dev)
-        prev = torch.tensor(1e10, dtype=f, device=dev)
+        prev = _const(1e10, f, dev)
         noimp = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         T_cum, prev, noimp = (carry[0].to(f), carry[1].to(f),
@@ -268,39 +278,43 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
         "h_std": torch.zeros((H,), dtype=f, device=dev),
         "h_thr": torch.zeros((H,), dtype=f, device=dev),
     }
-    tol = torch.tensor(tolerance, dtype=f, device=dev)
-    sig = torch.tensor(sigma_multiplier, dtype=f, device=dev)
+    tol = _const(tolerance, f, dev)
+    sig = _const(sigma_multiplier, f, dev)
     recorded = torch.zeros((), dtype=torch.int32, device=dev)
     it = 0
     stop = RUNNING
     while it < H and stop == RUNNING:
         src = apply_transform(T_cum, source)
-        if estimator == "plane":
-            dst, dist, nrm = nn_fn(src, target, nn_state)
-        else:
-            dst, dist = nn_fn(src, target, nn_state)
-        mean, std, thr, valid, valid_count, rmse, n_real = (
-            iteration_statistics(dist, weight, sig, widen_first, it == 0,
-                                 ps))
-        numerr = ~torch.isfinite(rmse + mean + std)
-        small = torch.abs(prev - rmse) < tol
-        no_improve = torch.where(small, noimp + 1, torch.zeros_like(noimp))
-        converged = small & (no_improve >= 3) & ~numerr
-        diverged = ~converged & (rmse > prev * 1.1)
-        too_few = ~converged & ~diverged & (valid_count < 3)
-        will_update = ~(converged | diverged | too_few | numerr)
-        upd_w = (valid if robust == "none"
-                 else valid.to(f) * _robust_weights(dist, weight, robust,
-                                                    ps))
-        if estimator == "plane":
-            # A linearisation about the CURRENT pose: the increment
-            # composes onto the cumulative transform.
-            T_cand = _plane_global(src, dst, nrm, upd_w, ps) @ T_cum
-        else:
-            # Kabsch from the PRISTINE source to the matched targets fits
-            # T_cum directly (no chain of rounded 4×4 products).
-            T_cand = kabsch_masked(source, dst, upd_w, ps=ps)
-        numerr = numerr | ~torch.isfinite(T_cand).all()
+        with stage("nn"):
+            if estimator == "plane":
+                dst, dist, nrm = nn_fn(src, target, nn_state)
+            else:
+                dst, dist = nn_fn(src, target, nn_state)
+        with stage("stats"):
+            mean, std, thr, valid, valid_count, rmse, n_real = (
+                iteration_statistics(dist, weight, sig, widen_first, it == 0,
+                                     ps))
+            numerr = ~torch.isfinite(rmse + mean + std)
+            small = torch.abs(prev - rmse) < tol
+            no_improve = torch.where(small, noimp + 1,
+                                     torch.zeros_like(noimp))
+            converged = small & (no_improve >= 3) & ~numerr
+            diverged = ~converged & (rmse > prev * 1.1)
+            too_few = ~converged & ~diverged & (valid_count < 3)
+            will_update = ~(converged | diverged | too_few | numerr)
+            upd_w = (valid if robust == "none"
+                     else valid.to(f) * _robust_weights(dist, weight, robust,
+                                                        ps))
+        with stage("solve"):
+            if estimator == "plane":
+                # A linearisation about the CURRENT pose: the increment
+                # composes onto the cumulative transform.
+                T_cand = _plane_global(src, dst, nrm, upd_w, ps) @ T_cum
+            else:
+                # Kabsch from the PRISTINE source to the matched targets
+                # fits T_cum directly (no chain of rounded 4×4 products).
+                T_cand = kabsch_masked(source, dst, upd_w, ps=ps)
+            numerr = numerr | ~torch.isfinite(T_cand).all()
         will_update = will_update & ~numerr
         T_new = torch.where(will_update, T_cand, T_cum)
         # Converged records the PREVIOUS transform; diverged/too_few
@@ -323,7 +337,8 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
         T_cum = T_new
         recorded = recorded + record.to(torch.int32)
         it += 1
-        stop = int(stop_t)  # the loop's one host read per iteration
+        with stage("read/stop"):
+            stop = int(stop_t)  # the loop's own host read per iteration
     if stop == RUNNING:
         stop = MAX_ITERATIONS
     out = {"T_cum": T_cum, "prev_error": prev, "no_improve": noimp,
@@ -621,6 +636,7 @@ def _resume_state(resume_carry, offset, dtype, device):
             torch.as_tensor(int(ni), dtype=torch.int32, device=device))
 
 
+@registration_call
 def icp_register(
     source,
     target,

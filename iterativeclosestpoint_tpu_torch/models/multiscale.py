@@ -64,7 +64,11 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     auto_trange,
     estimate_grid_params,
 )
-from iterativeclosestpoint_tpu_torch.runtime.timing import scope, stage
+from iterativeclosestpoint_tpu_torch.runtime.timing import (
+    registration_call,
+    scope,
+    stage,
+)
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
 
@@ -107,18 +111,21 @@ def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
     plane = fine_kwargs.get("estimator", "point") == "plane"
     auto_r = fine_kwargs.get("grid_resolution") is None
     with stage("grid_est"):
-        model = _occupancy_model(tgt_local) if auto_r else None
-        grid_est = estimate_grid_params(
-            tgt_local, fine_kwargs.get("grid_resolution"), model=model)
+        with stage("grid_est/occupancy"):
+            model = _occupancy_model(tgt_local) if auto_r else None
+        with stage("grid_est/params"):
+            grid_est = estimate_grid_params(
+                tgt_local, fine_kwargs.get("grid_resolution"), model=model)
         boost2_est = None
         R, trange, _, base, zrange = grid_est
-        if (two_stage and plane and auto_r and R == base and zrange is None
-                and trange < 2048
-                and surface_boost_ok(tgt_local, 2 * base, occupancy=16,
-                                     model=model)):
-            boost2_est = (2 * base, auto_trange(tgt_local, 2 * base),
-                          auto_coarse_trange(tgt_local, 2 * base), base,
-                          None)
+        with stage("grid_est/boost"):
+            if (two_stage and plane and auto_r and R == base
+                    and zrange is None and trange < 2048
+                    and surface_boost_ok(tgt_local, 2 * base, occupancy=16,
+                                         model=model)):
+                boost2_est = (2 * base, auto_trange(tgt_local, 2 * base),
+                              auto_coarse_trange(tgt_local, 2 * base), base,
+                              None)
     with stage("grid_build") as done:
         prepared_nn = make_pallas_nn_device(
             tgt_local, target_dev=tgt_dev, est=grid_est, with_normals=plane)
@@ -132,6 +139,7 @@ def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
     return (src_dev, tgt_dev, offset), prepared_nn, prepared_nn2
 
 
+@registration_call
 def icp_register_multiscale(
     source,
     target,

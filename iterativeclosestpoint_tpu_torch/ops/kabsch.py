@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from iterativeclosestpoint_tpu_torch.runtime.timing import stage
+
 
 def _weighted_moments(s, d, w, accum_dtype=None, ps=None):
     """Weighted centroids + cross-covariance (two-pass: centroids first),
@@ -49,7 +51,9 @@ def rigid_from_covariance(H: torch.Tensor, c_src: torch.Tensor,
     it is fed a zero matrix then (no host read decides it).
     """
     fin = torch.isfinite(H).all()
-    U, _, Vh = torch.linalg.svd(torch.where(fin, H, torch.zeros_like(H)))
+    with stage("read/svd"):  # on the card the SVD waits for it
+        U, _, Vh = torch.linalg.svd(torch.where(fin, H,
+                                                torch.zeros_like(H)))
     V = Vh.T
     R = V @ U.T
     sign = torch.where(torch.linalg.det(R) < 0, -1.0, 1.0).to(H.dtype)

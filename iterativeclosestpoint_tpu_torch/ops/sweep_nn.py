@@ -27,7 +27,10 @@ count. Here each gate reads its count to the host (``int(...)``) and the
 stage runs only when the gate fires. In the certified steady state an
 iteration therefore costs one fine kernel launch, a few small reductions
 and two host reads (coarse census, brute census); the ICP loop adds a
-third for its stop code.
+third for its stop code. On the card the window's edge scalars
+(``_edge_dist``) synchronise too. Each of these is a ``read/*`` span, and
+the repair chain's span ``nn/repair`` counts its tiles
+(``runtime/timing.py``).
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     estimate_grid_params,
     use_fused_sweep,
 )
-from iterativeclosestpoint_tpu_torch.runtime.timing import stage
+from iterativeclosestpoint_tpu_torch.runtime.timing import count, stage
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 from iterativeclosestpoint_tpu_torch.utils.hostmath import bbox
 
@@ -120,7 +123,9 @@ def _edge_dist(p, lo_c, hi_c, cell, hi, R: int):
     of a window covering cells [lo_c - 1, hi_c + 1]. An edge at or beyond
     the grid boundary, or strictly beyond the target's true extent ``hi``,
     is infinitely far."""
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=p.device)
+    with stage("read/inf"):  # a host-to-device copy: the card syncs
+        inf = torch.tensor(float("inf"), dtype=torch.float32,
+                           device=p.device)
     r_lo = torch.where(lo_c <= 1, inf, p - (lo_c - 1).to(torch.float32) * cell)
     r_hi = torch.where(
         (hi_c >= R - 2) | ((hi_c + 2).to(torch.float32) * cell > hi),
@@ -308,10 +313,14 @@ def nn_colsweep(
     """
     n_in = query.shape[0]
     query = _pad_rows(query, -(-n_in // tile_q) * tile_q)
-    win = sweep_window(query, grid, resolution=resolution, tile_q=tile_q,
-                       slabs=slabs, trange=trange, fused=fused)
-    out = colsweep(win.base, win.q32, grid.tgt_t, slabs=slabs, trange=trange,
-                   fused=fused, slack=win.slack, first_tie=first_tie)
+    with stage("nn/window"):
+        win = sweep_window(query, grid, resolution=resolution,
+                           tile_q=tile_q, slabs=slabs, trange=trange,
+                           fused=fused)
+    with stage("nn/sweep"):
+        out = colsweep(win.base, win.q32, grid.tgt_t, slabs=slabs,
+                       trange=trange, fused=fused, slack=win.slack,
+                       first_tie=first_tie)
     res = sweep_results(out, win, query.dtype)
     return tuple(x[:n_in] for x in (res if return_tie else res[:4]))
 
@@ -350,11 +359,13 @@ def nn_colsweep_z(
     n_in = query.shape[0]
     query = _pad_rows(query, -(-n_in // tile_q) * tile_q)
     fused = xy_slots * zrange <= 24576
-    win = zcol_window(query, grid, resolution=resolution, tile_q=tile_q,
-                      zrange=zrange, fused=fused, xy_slots=xy_slots)
-    out = colsweep(win.base, win.q32, grid.tgt_t, slabs=xy_slots,
-                   trange=zrange, fused=fused, slack=win.slack,
-                   first_tie=first_tie)
+    with stage("nn/window"):
+        win = zcol_window(query, grid, resolution=resolution, tile_q=tile_q,
+                          zrange=zrange, fused=fused, xy_slots=xy_slots)
+    with stage("nn/sweep"):
+        out = colsweep(win.base, win.q32, grid.tgt_t, slabs=xy_slots,
+                       trange=zrange, fused=fused, slack=win.slack,
+                       first_tie=first_tie)
     res = sweep_results(out, win, query.dtype)
     return tuple(x[:n_in] for x in (res if return_tie else res[:4]))
 
@@ -437,83 +448,108 @@ def nn_colsweep_exact(
               else torch.zeros_like(bm))
         return torch.cat([bm, nm], dim=1)
 
-    if coarse_grid is not None and coarse_resolution:
-        # Staged budgets: a small first stage for the steady-state drizzle,
-        # a middle stage for the moderate drift tail, then full-budget
-        # passes, the later ones gated on progress.
-        ct_full = max(min(coarse_budget // tile_q, t), 1)
-        ct_small = max(min(64, ct_full // 2), 1)
-        ct_mid = max(min(3 * ct_small, ct_full // 2), 1)
+    searched = 0  # tiles the repair passes search
 
-        def coarse_bad():
-            return (~c_t & ~tie_t).any(dim=1)
+    with stage("nn/repair"):
+        if coarse_grid is not None and coarse_resolution:
+            # Staged budgets: a small first stage for the steady-state
+            # drizzle, a middle stage for the moderate drift tail, then
+            # full-budget passes, the later ones gated on progress.
+            ct_full = max(min(coarse_budget // tile_q, t), 1)
+            ct_small = max(min(64, ct_full // 2), 1)
+            ct_mid = max(min(3 * ct_small, ct_full // 2), 1)
 
-        def coarse_repair(ct):
-            """Coarse-repair the first ``ct`` tiles of the bad-first tile
-            permutation (still-bad tiles always compact to the front)."""
-            bad = coarse_bad()
-            n_bad = bad.sum()
-            tsel = torch.argsort((~bad).to(torch.int32), stable=True)[:ct]
-            qc = q_t[tsel].reshape(ct * tile_q, 3)
-            m_c, n_c, d_c, cert_c = nn_colsweep(
-                qc, coarse_grid, resolution=coarse_resolution,
-                tile_q=tile_q, slabs=slabs, trange=coarse_trange,
-            )
-            m_c6 = torch.cat([m_c, n_c], dim=1).reshape(ct, tile_q, 6)
-            live = (torch.arange(ct, device=dev) < n_bad)[:, None]
-            upd = live & cert_c.reshape(ct, tile_q)
-            m_t[tsel] = torch.where(upd[..., None], m_c6, m_t[tsel])
-            d_t[tsel] = torch.where(upd, d_c.reshape(ct, tile_q), d_t[tsel])
-            c_t[tsel] = c_t[tsel] | upd
+            def coarse_bad():
+                return (~c_t & ~tie_t).any(dim=1)
 
-        n_bad0 = int(coarse_bad().sum())  # host read
-        if n_bad0 > 0:
-            coarse_repair(ct_small)
-        if ct_mid > ct_small and ct_full > ct_mid and n_bad0 > ct_small:
-            coarse_repair(ct_mid)
-        if ct_full > ct_small and n_bad0 > 0:
-            # Pass 1 fires on any leftover; passes 2.. only while the
-            # previous pass kept certifying tiles. A pass that does not
-            # fire changes nothing, so no later pass can fire either.
-            n_prev = None
-            for _ in range(coarse_passes):
-                n_now = int(coarse_bad().sum())  # host read
-                fire = n_now > 0 if n_prev is None else 0 < n_now < n_prev
-                if not fire:
-                    break
-                coarse_repair(ct_full)
-                n_prev = n_now
+            def coarse_repair(ct):
+                """Coarse-repair the first ``ct`` tiles of the bad-first
+                tile permutation (still-bad tiles always compact to the
+                front)."""
+                nonlocal searched
+                bad = coarse_bad()
+                n_bad = bad.sum()
+                tsel = torch.argsort((~bad).to(torch.int32),
+                                     stable=True)[:ct]
+                qc = q_t[tsel].reshape(ct * tile_q, 3)
+                m_c, n_c, d_c, cert_c = nn_colsweep(
+                    qc, coarse_grid, resolution=coarse_resolution,
+                    tile_q=tile_q, slabs=slabs, trange=coarse_trange,
+                )
+                m_c6 = torch.cat([m_c, n_c], dim=1).reshape(ct, tile_q, 6)
+                live = (torch.arange(ct, device=dev) < n_bad)[:, None]
+                upd = live & cert_c.reshape(ct, tile_q)
+                m_t[tsel] = torch.where(upd[..., None], m_c6, m_t[tsel])
+                d_t[tsel] = torch.where(upd, d_c.reshape(ct, tile_q),
+                                        d_t[tsel])
+                c_t[tsel] = c_t[tsel] | upd
+                searched += ct
 
-    bad_tile2 = (~c_t).any(dim=1)
-    n_bad_t2 = int(bad_tile2.sum())  # host read
-    bt = max(brute_batch // tile_q, 1)         # tiles per brute pass
-    kmax = min(brute_passes * bt, t)           # total tile budget
-    bt_small = min(max(bt // 8, 1), kmax)
+            with stage("read/gate"):
+                n_bad0 = int(coarse_bad().sum())  # host read
+            if n_bad0 > 0:
+                coarse_repair(ct_small)
+            if ct_mid > ct_small and ct_full > ct_mid and n_bad0 > ct_small:
+                coarse_repair(ct_mid)
+            if ct_full > ct_small and n_bad0 > 0:
+                # Pass 1 fires on any leftover; passes 2.. only while the
+                # previous pass kept certifying tiles. A pass that does not
+                # fire changes nothing, so no later pass can fire either.
+                n_prev = None
+                for _ in range(coarse_passes):
+                    with stage("read/gate"):
+                        n_now = int(coarse_bad().sum())  # host read
+                    fire = (n_now > 0 if n_prev is None
+                            else 0 < n_now < n_prev)
+                    if not fire:
+                        break
+                    coarse_repair(ct_full)
+                    n_prev = n_now
 
-    def brute_repair(lo, nb):
-        """Brute-repair tiles [lo, lo+nb) of the bad-first permutation."""
-        tperm = torch.argsort((~bad_tile2).to(torch.int32), stable=True)
-        rows = tperm[lo:lo + nb]
-        bi, bd = nn_exact(q_t[rows].reshape(nb * tile_q, 3), target)
-        live = (lo + torch.arange(nb, device=dev) < n_bad_t2)[:, None]
-        m_t[rows] = torch.where(live[..., None],
-                                tgt6(bi).reshape(nb, tile_q, 6), m_t[rows])
-        d_t[rows] = torch.where(live, bd.reshape(nb, tile_q), d_t[rows])
+        bad_tile2 = (~c_t).any(dim=1)
+        with stage("read/gate"):
+            n_bad_t2 = int(bad_tile2.sum())  # host read
+        bt = max(brute_batch // tile_q, 1)     # tiles per brute pass
+        kmax = min(brute_passes * bt, t)       # total tile budget
+        bt_small = min(max(bt // 8, 1), kmax)
 
-    if kmax > 0 and n_bad_t2 > 0:
-        brute_repair(0, bt_small)  # the drizzle (≤ bt_small bad tiles)
-        if n_bad_t2 > bt_small:
-            # Bulk passes; tiles fixed by the first stage are brute-forced
-            # again (same exact result).
-            nb = min(bt, kmax)
-            for p in range(brute_passes):
-                if n_bad_t2 > p * bt:
-                    brute_repair(min(p * bt, t - nb), nb)
+        def brute_repair(lo, nb):
+            """Brute-repair tiles [lo, lo+nb) of the bad-first
+            permutation."""
+            nonlocal searched
+            tperm = torch.argsort((~bad_tile2).to(torch.int32),
+                                  stable=True)
+            rows = tperm[lo:lo + nb]
+            bi, bd = nn_exact(q_t[rows].reshape(nb * tile_q, 3), target)
+            live = (lo + torch.arange(nb, device=dev) < n_bad_t2)[:, None]
+            m_t[rows] = torch.where(live[..., None],
+                                    tgt6(bi).reshape(nb, tile_q, 6),
+                                    m_t[rows])
+            d_t[rows] = torch.where(live, bd.reshape(nb, tile_q), d_t[rows])
+            searched += nb
 
-    if global_fallback and n_bad_t2 > kmax:
-        bi, bd = nn_exact(query, target)
-        m_t = tgt6(bi).reshape(t, tile_q, 6)
-        d_t = bd.reshape(t, tile_q)
+        if kmax > 0 and n_bad_t2 > 0:
+            brute_repair(0, bt_small)  # the drizzle (≤ bt_small bad tiles)
+            if n_bad_t2 > bt_small:
+                # Bulk passes; tiles fixed by the first stage are
+                # brute-forced again (same exact result).
+                nb = min(bt, kmax)
+                for p in range(brute_passes):
+                    if n_bad_t2 > p * bt:
+                        brute_repair(min(p * bt, t - nb), nb)
+
+        fallback = global_fallback and n_bad_t2 > kmax
+        if fallback:
+            bi, bd = nn_exact(query, target)
+            m_t = tgt6(bi).reshape(t, tile_q, 6)
+            d_t = bd.reshape(t, tile_q)
+        # The chain's outcome from the counts read above (no new read).
+        coarse = coarse_grid is not None and coarse_resolution
+        count("bad_tiles", n_bad0 if coarse else n_bad_t2)
+        count("repair_tiles", searched)
+        count("unproven_tiles",
+              0 if global_fallback else max(0, n_bad_t2 - kmax))
+        count("fallbacks", int(fallback))
 
     matched = m_t.reshape(n, 6)
     dist = d_t.reshape(n)

@@ -21,14 +21,17 @@ TB/s), as achieved rates, the shares ``sol_compute``, ``sol_memory`` and
 ``sol`` (the larger), and the least time the same work could take,
 ``bound_s``. The f32 rate counts an FMA as two operations, which the d²
 contract forbids, so a sweep's bound is about half its issue floor.
-``trace`` wraps ``torch.profiler`` and writes a Chrome trace.
+``trace`` wraps ``torch.profiler`` and writes a Chrome trace, with the
+program's stage spans as a track of their own where a collector is given.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -263,11 +266,55 @@ def covariance_kernel_report(
                         card or card_spec())
 
 
+MARK = "icp-torch.mark"
+STAGE_TRACK = "icp-torch stages"
+STAGE_TID = 2**31 - 1  # the stage track's thread id, no system thread's
+
+
+def _mark() -> int:
+    """A marker range on the profiler's clock; returns the
+    ``perf_counter_ns`` time of its middle."""
+    a = time.perf_counter_ns()
+    with torch.profiler.record_function(MARK):
+        pass
+    return (a + time.perf_counter_ns()) // 2
+
+
+def add_stage_track(path, intervals, t_mark_ns: int) -> None:
+    """Append the spans ``intervals`` (``timing.Interval``, on
+    ``perf_counter_ns``) to the Chrome trace at ``path`` as their own
+    track, "icp-torch stages", on the trace's clock: the last ``MARK``
+    event in the trace started at ``t_mark_ns``. A span still open has
+    no interval yet and is left out."""
+    path = Path(path)
+    doc = json.loads(path.read_text())
+    events = doc["traceEvents"]
+    mark = [e for e in events if e.get("name") == MARK][-1]
+    off_us = mark["ts"] - t_mark_ns / 1e3
+    pid = mark["pid"]
+    events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                   "tid": STAGE_TID, "args": {"name": STAGE_TRACK}})
+    for iv in intervals:
+        if iv is None:
+            continue
+        parent = intervals[iv.parent] if iv.parent is not None else None
+        events.append({
+            "ph": "X", "cat": "icp_stage", "name": iv.name, "pid": pid,
+            "tid": STAGE_TID, "ts": iv.start_ns / 1e3 + off_us,
+            "dur": (iv.end_ns - iv.start_ns) / 1e3,
+            "args": {"parent": parent.name if parent else None,
+                     "call": iv.call},
+        })
+    path.write_text(json.dumps(doc))
+
+
 @contextlib.contextmanager
-def trace(log_dir: Optional[str]):
+def trace(log_dir: Optional[str], spans=None):
     """``torch.profiler`` over the block (CPU, and the card where CUDA is
     available); writes ``<log_dir>/trace.json`` (Chrome trace format:
-    chrome://tracing or Perfetto)."""
+    chrome://tracing or Perfetto). ``spans``: a ``timing.StageCollector``
+    whose spans are added to the trace as their own track
+    (``add_stage_track``)."""
     if not log_dir:
         yield None
         return
@@ -279,5 +326,9 @@ def trace(log_dir: Optional[str]):
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
     with profile(activities=activities) as prof:
+        _mark()  # the first record_function of a process sets itself up
+        t_mark = _mark()
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+    if spans is not None:
+        add_stage_track(out / "trace.json", spans.intervals, t_mark)
