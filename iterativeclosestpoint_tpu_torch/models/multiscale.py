@@ -54,15 +54,9 @@ from iterativeclosestpoint_tpu_torch.models.icp import (
     _compose_callback,
     icp_register,
 )
-from iterativeclosestpoint_tpu_torch.ops.cellblock import (
-    _occupancy_model,
-    surface_boost_ok,
-)
 from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
-    auto_coarse_trange,
-    auto_trange,
-    estimate_grid_params,
+    estimate_fine_grid_device,
 )
 from iterativeclosestpoint_tpu_torch.runtime.timing import (
     registration_call,
@@ -109,23 +103,10 @@ def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
         tgt_dev = torch.as_tensor(tgt_local, device=dev)
         done((src_dev, tgt_dev))
     plane = fine_kwargs.get("estimator", "point") == "plane"
-    auto_r = fine_kwargs.get("grid_resolution") is None
     with stage("grid_est"):
-        with stage("grid_est/occupancy"):
-            model = _occupancy_model(tgt_local) if auto_r else None
-        with stage("grid_est/params"):
-            grid_est = estimate_grid_params(
-                tgt_local, fine_kwargs.get("grid_resolution"), model=model)
-        boost2_est = None
-        R, trange, _, base, zrange = grid_est
-        with stage("grid_est/boost"):
-            if (two_stage and plane and auto_r and R == base
-                    and zrange is None and trange < 2048
-                    and surface_boost_ok(tgt_local, 2 * base, occupancy=16,
-                                         model=model)):
-                boost2_est = (2 * base, auto_trange(tgt_local, 2 * base),
-                              auto_coarse_trange(tgt_local, 2 * base), base,
-                              None)
+        grid_est, boost2_est = estimate_fine_grid_device(
+            tgt_dev, fine_kwargs.get("grid_resolution"), plane=plane,
+            two_stage=two_stage)
     with stage("grid_build") as done:
         prepared_nn = make_pallas_nn_device(
             tgt_local, target_dev=tgt_dev, est=grid_est, with_normals=plane)

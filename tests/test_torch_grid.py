@@ -22,6 +22,7 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     grouped_tile_order_device,
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
+from iterativeclosestpoint_tpu_torch.runtime.timing import collect, stage
 
 
 def _cloud(kind):
@@ -51,6 +52,81 @@ def test_estimators_match_jax(kind):
         pts, 16)
     for slabs, tr in ((4, 768), (4, 1536), (6, 1024), (1, 768)):
         assert tsp.use_fused_sweep(slabs, tr) == jpn.use_fused_sweep(slabs, tr)
+
+
+def _stack(layers, n, dz):
+    return np.concatenate([
+        make_cloud(n, seed=s, extent=100.0) + np.array([0.0, 0.0, dz * s])
+        for s in range(layers)])
+
+
+def _flat_cluster():
+    rng = np.random.default_rng(7)
+    spread = np.c_[rng.uniform(0, 100, (2000, 2)), np.zeros(2000)]
+    dense = np.c_[rng.uniform(40, 41, (40_000, 2)), np.zeros(40_000)]
+    return np.r_[spread, dense]
+
+
+def _at_tmax():
+    pts = make_cloud(30_000, seed=5, extent=100.0)
+    pts[::3] = pts.max(axis=0)  # a third of the rows on the clip edge
+    return pts
+
+
+# name: (cloud, given resolution, sample cap or None, the branch it takes)
+_FINE_CASES = {
+    "terrain": (lambda: _cloud("terrain"), None, None, "z-column, boosted"),
+    "sphere": (lambda: _cloud("sphere"), None, None, "z-column"),
+    "volume": (lambda: _cloud("volume"), None, None, "z-column"),
+    "zcol_refuses_boost": (lambda: _stack(8, 6000, 10.0), None, None,
+                           "z-column wins its cost model"),
+    "surface_boost": (lambda: make_cloud(50_000, seed=21, extent=100.0),
+                      None, None, "R = 2 base"),
+    "boost2_passes": (lambda: make_cloud(30_000, seed=21, extent=100.0),
+                      None, None, "two-stage gate passes"),
+    "boost2_refused": (lambda: _stack(4, 12_000, 3.0), None, None,
+                       "two-stage gate refuses (d > 2.45)"),
+    "given_pow2": (lambda: _cloud("terrain"), 64, None, "given R"),
+    "given_other": (lambda: _cloud("terrain"), 100, None, "host path"),
+    "strided": (lambda: make_cloud(50_001, seed=9), None, 10_000,
+                "stride 5, 50,001 rows"),
+    "at_tmax": (_at_tmax, None, None, "rows on the clip edge"),
+    "flat_zcol": (_flat_cluster, None, None, "z extent 0, z-column"),
+    "tiny": (lambda: _cloud("terrain") * 4e-9, None, None,
+             "extent under 512e-9: host path"),
+}
+
+
+@pytest.mark.parametrize("case", list(_FINE_CASES))
+def test_fine_grid_estimate_on_the_device_matches_host_and_jax(
+        case, monkeypatch):
+    """``estimate_fine_grid_device`` on CPU tensors: the same (grid_est,
+    boost2_est) as the numpy calls (``estimate_fine_grid``), whose
+    grid_est is the JAX package's ``estimate_grid_params``; one pass over
+    the cloud and one read, one more of each on the z-column branch (and
+    a second sample where the two sample caps give other strides)."""
+    make, res, cap, _ = _FINE_CASES[case]
+    pts = make().astype(np.float32)
+    if cap is not None:
+        monkeypatch.setattr(tsp, "_AUTO_TRANGE_SAMPLE_CAP", cap)
+        monkeypatch.setattr(jpn, "_AUTO_TRANGE_SAMPLE_CAP", cap)
+    host_path = case in ("given_other", "tiny")
+    for plane in (False, True):
+        want = tsp.estimate_fine_grid(pts, res, plane=plane)
+        with collect(sync=False) as col:
+            with stage("grid_est"):
+                got = tsp.estimate_fine_grid_device(
+                    torch.as_tensor(pts), res, plane=plane)
+        assert got == want, (plane, got, want)
+        assert want[0] == jpn.estimate_grid_params(pts, res)
+        if not host_path:
+            zcol = want[0][4] is not None
+            meta = col.meta["grid_est"]
+            assert meta["cloud_passes"] == 1 + zcol + (cap is not None)
+            assert meta["est_reads"] == 1 + zcol
+    assert tsp.estimate_fine_grid_device(
+        torch.as_tensor(pts), res, plane=True, two_stage=False) == (
+        tsp.estimate_fine_grid(pts, res, plane=True, two_stage=False))
 
 
 def _geometry(tgt, R):
