@@ -5,20 +5,21 @@
 
 From the checkout's root. The cell (``BENCHMARK.json``'s ``workloads``)
 names a configuration, ``configs/<config>.json``, and a traffic mix,
-``traffic/<traffic>.json``; a per-layer metric is read by
-``metrics/<name>.py``. Nothing else here knows a cell, a mix or a metric.
+``traffic/<traffic>.json``, whose ``entry`` names what the cell calls,
+``entries/<entry>.py``; a per-layer metric is read by
+``metrics/<name>.py``. Nothing else here knows a cell, a mix, an entry or
+a metric.
 
-A run: a pool of distinct tile pairs made from the seed (set-up), one
-warm-up registration of each pair (set-up), then a closed loop of one
-client for ``--seconds``: each registration takes the next pair and the
-next starts when it has returned, until the time is up; the window ends
-when the last one returns. Then, with the program's state freed, the
-reference checks what the window returned (``check.py``). With
-``--trace 1`` the first ``trace_points`` worth of registrations run under
-``torch.profiler`` (the card's activity only) with the program's stage
-spans taken unsynced, as many again with neither (the walls the profiled
-ones are held against), and the rest with the spans synced, which is what
-the span metrics read.
+A run: the entry's pool of call inputs made from the seed (set-up), one
+warm-up call on each (set-up), then a closed loop of one client for
+``--seconds``: each call takes the next input and the next starts when it
+has returned, until the time is up; the window ends when the last one
+returns. Then, with the program's state freed, the entry's ``compare``
+checks what the window returned. With ``--trace 1`` the first
+``trace_points`` worth of calls run under ``torch.profiler`` (the card's
+activity only) with the program's stage spans taken unsynced, as many
+again with neither (the walls the profiled ones are held against), and
+the rest with the spans synced, which is what the span metrics read.
 
 The last stdout line is the result: ``correct``, ``attempted``, ``failed``,
 ``metrics``, ``device``, ``breakdown`` (traced runs) and, last, ``checks``
@@ -74,14 +75,26 @@ def load_cell(root: Path, workload: str) -> dict:
     }
 
 
-def metric_reader(root: Path, name: str):
-    """``read(ctx)`` of ``metrics/<name>.py``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
+def _module(root: Path, folder: str, kind: str, name: str):
+    """The module ``portbench/<folder>/<name>.py`` of the checkout."""
+    path = root / "portbench" / folder / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(root: Path, name: str):
+    """``read(ctx)`` of ``metrics/<name>.py``."""
+    return _module(root, "metrics", "metric", name).read
+
+
+def entry_module(root: Path, name: str):
+    """``entries/<name>.py``: ``pool``, ``points``, ``entry``,
+    ``iterations``, ``work``, ``complete``, ``NUMBERS`` and ``compare``
+    (``README.md``, "Adding an entry")."""
+    return _module(root, "entries", "entry", name)
 
 
 def cache_dirs(root: Path) -> None:
@@ -94,53 +107,11 @@ def cache_dirs(root: Path) -> None:
 
 
 def library_entry(settings: dict, device):
-    """One registration through ``icp_register_multiscale`` on the
-    pair's host float64 arrays; returns its record (``check.py``)."""
-    import torch
+    """The call of ``entries/library.py``, imported when first asked for
+    so that its imports count in ``setup_s``."""
+    from portbench.entries import library
 
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        icp_register_multiscale,
-    )
-
-    kwargs = dict(
-        coarse_max_points=settings["coarse_max_points"],
-        coarse_iterations=settings["coarse_iterations"],
-        coarse_tolerance=settings["coarse_tolerance"],
-        max_iterations=settings["max_iterations"],
-        tolerance=settings["tolerance"],
-        sigma_multiplier=settings["sigma_multiplier"],
-        mode=settings["mode"],
-        estimator=settings["estimator"],
-        nn_backend=settings["nn_backend"],
-        dtype=getattr(torch, settings["dtype"]),
-        return_registered=settings["return_registered"],
-        device=device,
-    )
-
-    def register(pair):
-        res = icp_register_multiscale(pair["source"], pair["target"],
-                                      **kwargs)
-        return [level_record(s, r) for s, r in res.levels]
-
-    return register
-
-
-def level_record(stride: int, res) -> dict:
-    """What the check reads of one level's result, as host copies."""
-    import numpy as np
-
-    return {
-        "stride": int(stride),
-        "iterations": int(res.iterations),
-        "stop": int(res.stop_reason),
-        "T": np.array(res.transform, np.float64),
-        "hist": {
-            "T": np.array(res.history_transform, np.float64),
-            "rmse": np.array(res.history_rmse),
-            "mean": np.array(res.history_mean_dist),
-            "valid": np.array(res.history_valid),
-        },
-    }
+    return library.library_entry(settings, device)
 
 
 ENTRIES = {"library": library_entry}
@@ -178,23 +149,23 @@ def card_line() -> str:
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
              trace: bool, device) -> dict:
     """One run of the cell; returns the result line's object."""
-    import numpy as np
     import torch
 
     from iterativeclosestpoint_tpu_torch.runtime import timing
-    from portbench import check, stats, synth
+    from portbench import stats, synth
     from portbench.trace import DeviceTrace, profiled
 
     spec = load_cell(root, workload)
     settings, traffic = spec["settings"], spec["traffic"]
-    register = ENTRIES[traffic["entry"]](settings, device)
-    pool = synth.make_pool(settings["n_points"], seed, traffic)
+    entry = entry_module(root, traffic["entry"])
+    call = entry.entry(settings, device)
+    pool = entry.pool(settings, seed, traffic)
     order = synth.schedule(seed, len(pool), len(pool))
     on_card = torch.device(device).type == "cuda"
     warm = []
-    for p in order:  # warm-up: every pair once, so every shape is seen
+    for p in order:  # warm-up: every input once, so every shape is seen
         ta = time.perf_counter()
-        register(pool[p])
+        call(pool[p])
         warm.append(time.perf_counter() - ta)
     if on_card:
         torch.cuda.synchronize()
@@ -205,7 +176,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     regs, failed = [], 0
     profiled_spans = []
     prof_out = None
-    n_trace = (max(1, traffic["trace_points"] // settings["n_points"])
+    n_trace = (max(1, traffic["trace_points"] // entry.points(settings))
                if trace else 0)
     t0 = time.perf_counter()
     t_end = t0
@@ -215,17 +186,16 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         p = order[i % len(order)]
         ta = time.perf_counter()
         try:
-            levels = register(pool[p])
-        except Exception:  # a registration that raises counts as failed
+            record = call(pool[p])
+        except Exception:  # a call that raises counts as failed
             log(traceback.format_exc())
-            levels = None
+            record = None
         t_end = time.perf_counter()
-        ok = (levels is not None
-              and levels[-1]["iterations"] == settings["max_iterations"]
-              and bool(np.isfinite(levels[-1]["T"]).all()))
-        failed += not ok
+        failed += record is None or not entry.complete(settings, record)
+        # The call's record under "levels", the name check.py and the
+        # metric readers know it by.
         regs.append({"index": i, "pair": p, "seconds": t_end - ta,
-                     "levels": levels})
+                     "levels": record})
 
     i = 0
     if n_trace:
@@ -252,8 +222,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         torch.cuda.empty_cache()
 
     done = [r for r in regs if r["levels"] is not None]
-    n = settings["n_points"]
-    work = sum(n * r["levels"][-1]["iterations"] for r in done)
+    work = sum(entry.work(settings, r["levels"]) for r in done)
     metrics, breakdown, dev_extra = {}, None, {}
     if not trace:
         values = {"icp_pts_per_s": stats.rate(work, window_s),
@@ -283,8 +252,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         ctx = {
             "settings": settings, "traffic": traffic,
             "stages": dict(synced.stages),
+            "meta": {k: dict(v) for k, v in synced.meta.items()},
             "synced": len(synced_regs),
-            "fine_iterations": sum(r["levels"][-1]["iterations"]
+            "fine_iterations": sum(entry.iterations(settings, r["levels"])
                                    for r in synced_regs),
             "trace": dtrace,
             "profiled": [r for r in regs[:n_trace]
@@ -301,14 +271,14 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         + ", ".join(f"{r['seconds']:.4f}" for r in regs))
 
     t_check = time.perf_counter()
-    readings = check.compare(pool, done, settings, traffic["check"], seed,
-                             log=log)
+    readings = entry.compare(pool, done, settings, traffic["check"], seed,
+                             log)
     log(f"check: {time.perf_counter() - t_check:.1f} s")
     limits = settings["limits"]
     correct = failed == 0 and bool(done) and all(
-        readings[k] <= limits[k] for k in check.NUMBERS)
+        readings[k] <= limits[k] for k in entry.NUMBERS)
     checks = {k: {"value": readings[k], "limit": limits[k]}
-              for k in check.NUMBERS}
+              for k in entry.NUMBERS}
     checks["failed"] = {"value": failed, "limit": 0}
     line = {
         "correct": correct,

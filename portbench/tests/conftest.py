@@ -1,9 +1,9 @@
 """Fixtures of the benchmark's CPU tests: a checkout in miniature.
 
 ``tiny_root`` is a directory laid out as a checkout (``BENCHMARK.json``
-and ``portbench/{configs,traffic,metrics}``) whose configurations are the
-benchmark's own with fewer points and iterations, so a whole run fits a
-test on the CPU, where the kernels run their plain versions.
+and ``portbench/{configs,traffic,metrics,entries}``) whose configurations
+are the benchmark's own with fewer points and iterations, so a whole run
+fits a test on the CPU, where the kernels run their plain versions.
 """
 
 from __future__ import annotations
@@ -32,10 +32,11 @@ TINY = {"n_points": 6000, "coarse_max_points": 1500, "max_iterations": 4,
 def make_root(dest: Path) -> Path:
     """A miniature checkout at ``dest``: every cell of ``BENCHMARK.json``
     on its configuration cut to ``TINY``, each mix with pools of two
-    pairs, and the metric readers as they are."""
+    pairs, and the metric readers and entries as they are."""
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     pb = dest / "portbench"
     shutil.copytree(REPO / "portbench" / "metrics", pb / "metrics")
+    shutil.copytree(REPO / "portbench" / "entries", pb / "entries")
     shutil.copytree(REPO / "portbench" / "traffic", pb / "traffic")
     (pb / "configs").mkdir(parents=True)
     for conf in bench["configs"]:
