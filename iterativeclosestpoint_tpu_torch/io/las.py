@@ -22,6 +22,13 @@ Writer policy follows the reference *CLI* (icp_registration.cpp:766-773,
 author-marked as the fix): the caller's scale/offset are preserved so the
 georeference survives a round-trip; the GUI's re-basing-to-min behavior
 (lasio.cpp:167-174) is available as ``rebase=True``.
+
+``read_las`` and ``write_las`` are timed as the spans ``las/read/file``,
+``las/read/decode``, ``las/write/encode`` and ``las/write/file``
+(runtime/timing.py: no-ops unless a collector is active). The file spans
+count the bytes read or written (``las_bytes``), the decode and encode
+spans the points (``las_points``), and the decode span which decoder ran
+(``numpy_decodes`` or ``native_decodes``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from iterativeclosestpoint_tpu_torch.runtime.timing import count, stage
 from iterativeclosestpoint_tpu_torch.utils.hostmath import bbox
 
 HEADER_SIZE = 227  # LAS 1.2 standard header (lasio.cpp:21)
@@ -104,7 +112,9 @@ def read_las(
       (points (N,3) float64 world coordinates, header).
     """
     path = Path(path)
-    raw = np.fromfile(path, dtype=np.uint8)
+    with stage("las/read/file"):
+        raw = np.fromfile(path, dtype=np.uint8)
+        count("las_bytes", raw.size)
     hdr = _parse_header(raw[:HEADER_SIZE].tobytes())
 
     n = hdr.point_count
@@ -115,45 +125,61 @@ def read_las(
     avail = (len(raw) - start) // L
     n = min(n, avail)
 
-    if engine != "numpy" and stride == 1:
-        use_native = engine == "native" or (engine == "auto" and n > 20_000_000)
-        if use_native:
-            try:
-                from iterativeclosestpoint_tpu_torch.runtime.native import (
-                    las_decode_native,
-                    native_available,
-                )
+    with stage("las/read/decode"):
+        pts = None
+        if engine != "numpy" and stride == 1:
+            use_native = engine == "native" or (engine == "auto"
+                                                and n > 20_000_000)
+            if use_native:
+                pts = _decode_native(raw[start : start + n * L], n, L, hdr,
+                                     required=engine == "native")
+        if pts is None:
+            pts = _decode_numpy(raw, n, L, start, stride, hdr)
+            count("numpy_decodes")
+        else:
+            count("native_decodes")
+        count("las_points", len(pts))
+    return pts, hdr
 
-                if native_available():
-                    pts = las_decode_native(
-                        raw[start : start + n * L], n, L,
-                        np.asarray(hdr.scale), np.asarray(hdr.offset),
-                    )
-                    return pts, hdr
-                if engine == "native":
-                    raise RuntimeError("native decoder unavailable")
-            except ImportError:
-                if engine == "native":
-                    raise
 
-    # One strided structured view decodes every record at once.
+def _decode_native(buf, n, L, hdr, required: bool):
+    """The native C++ decoder's points, or None where it is not built
+    (an error instead where ``required``)."""
+    try:
+        from iterativeclosestpoint_tpu_torch.runtime.native import (
+            las_decode_native,
+            native_available,
+        )
+    except ImportError:
+        if required:
+            raise
+        return None
+    if native_available():
+        return las_decode_native(buf, n, L, np.asarray(hdr.scale),
+                                 np.asarray(hdr.offset))
+    if required:
+        raise RuntimeError("native decoder unavailable")
+    return None
+
+
+def _decode_numpy(buf, n, L, start, stride, hdr):
+    """Every ``stride``-th of ``n`` records from byte ``start`` of
+    ``buf``, in one strided structured view."""
     rec = np.dtype(
         {"names": ["x", "y", "z"], "formats": ["<i4", "<i4", "<i4"],
          "offsets": [0, 4, 8], "itemsize": L}
     )
-    pts_i = np.frombuffer(raw.data, dtype=rec, count=n, offset=start)
+    pts_i = np.frombuffer(buf, dtype=rec, count=n, offset=start)
     if stride > 1:
         pts_i = pts_i[::stride]
 
-    scale = np.asarray(hdr.scale)
-    offset = np.asarray(hdr.offset)
     pts = np.empty((len(pts_i), 3), np.float64)
     pts[:, 0] = pts_i["x"]
     pts[:, 1] = pts_i["y"]
     pts[:, 2] = pts_i["z"]
-    pts *= scale
-    pts += offset
-    return pts, hdr
+    pts *= np.asarray(hdr.scale)
+    pts += np.asarray(hdr.offset)
+    return pts
 
 
 def read_las_range(
@@ -180,21 +206,7 @@ def read_las_range(
     with open(path, "rb") as f:
         f.seek(hdr.offset_to_data + start * L)
         buf = f.read(n * L)
-    got = len(buf) // L
-    rec = np.dtype(
-        {"names": ["x", "y", "z"], "formats": ["<i4", "<i4", "<i4"],
-         "offsets": [0, 4, 8], "itemsize": L}
-    )
-    pts_i = np.frombuffer(buf, dtype=rec, count=got)
-    if step > 1:
-        pts_i = pts_i[::step]
-    pts = np.empty((len(pts_i), 3), np.float64)
-    pts[:, 0] = pts_i["x"]
-    pts[:, 1] = pts_i["y"]
-    pts[:, 2] = pts_i["z"]
-    pts *= np.asarray(hdr.scale)
-    pts += np.asarray(hdr.offset)
-    return pts, hdr
+    return _decode_numpy(buf, len(buf) // L, L, 0, step, hdr), hdr
 
 
 def read_las_batches(
@@ -208,12 +220,6 @@ def read_las_batches(
     path = Path(path)
     hdr = read_header(path)
     L = hdr.point_record_length
-    scale = np.asarray(hdr.scale)
-    offset = np.asarray(hdr.offset)
-    rec = np.dtype(
-        {"names": ["x", "y", "z"], "formats": ["<i4", "<i4", "<i4"],
-         "offsets": [0, 4, 8], "itemsize": L}
-    )
     with open(path, "rb") as f:
         f.seek(hdr.offset_to_data)
         remaining = hdr.point_count
@@ -223,16 +229,7 @@ def read_las_batches(
             if len(buf) < L:
                 break
             got = len(buf) // L
-            pts_i = np.frombuffer(buf, dtype=rec, count=got)
-            if stride > 1:
-                pts_i = pts_i[::stride]
-            pts = np.empty((len(pts_i), 3), np.float64)
-            pts[:, 0] = pts_i["x"]
-            pts[:, 1] = pts_i["y"]
-            pts[:, 2] = pts_i["z"]
-            pts *= scale
-            pts += offset
-            yield pts
+            yield _decode_numpy(buf, got, L, 0, stride, hdr)
             remaining -= got
 
 
@@ -254,12 +251,34 @@ def write_las(
     if points.size == 0:
         raise ValueError("empty cloud, nothing to write")
 
-    pmin, pmax = bbox(points)
-    if rebase or offset is None:
-        offset = tuple(pmin)
-    if rebase or scale is None:
-        scale = DEFAULT_SCALE
+    with stage("las/write/encode"):
+        pmin, pmax = bbox(points)
+        if rebase or offset is None:
+            offset = tuple(pmin)
+        if rebase or scale is None:
+            scale = DEFAULT_SCALE
+        header, records = _encode(points, scale, offset, pmin, pmax)
+        count("las_points", len(points))
+    with stage("las/write/file"):
+        with open(path, "wb") as f:
+            f.write(header)
+            f.write(records)
+        count("las_bytes", header.nbytes + records.nbytes)
 
+    return LASHeader(
+        point_count=len(points),
+        point_record_length=20,
+        offset_to_data=HEADER_SIZE,
+        scale=tuple(scale),
+        offset=tuple(offset),
+        bounds_min=tuple(pmin),
+        bounds_max=tuple(pmax),
+    )
+
+
+def _encode(points, scale, offset, pmin, pmax):
+    """The header and the point-format-0 records of ``points``, as uint8
+    arrays."""
     n = len(points)
     header = np.zeros(HEADER_SIZE, np.uint8)
     header[0:4] = np.frombuffer(SIGNATURE, np.uint8)
@@ -289,16 +308,4 @@ def write_las(
     records = np.zeros((n, 20), np.uint8)  # point-format-0: 20-byte records
     records[:, 0:12] = ints.view(np.uint8).reshape(n, 12)
 
-    with open(path, "wb") as f:
-        f.write(header.tobytes())
-        f.write(records.tobytes())
-
-    return LASHeader(
-        point_count=n,
-        point_record_length=20,
-        offset_to_data=HEADER_SIZE,
-        scale=tuple(scale),
-        offset=tuple(offset),
-        bounds_min=tuple(pmin),
-        bounds_max=tuple(pmax),
-    )
+    return header, records

@@ -840,14 +840,20 @@ def icp_register(
             out = dispatch(carry, max_iterations, widen)
         done(out["T_cum"])
     with stage("package"):
-        res = package_result(out, offset, return_registered)
+        res = package_result(out, offset, return_registered=False)
     res.nn_resolution = nn_res
-    if rows is not None and res.source_registered is not None:
-        res = apply_permutation(
-            res, rows.cpu().numpy(),
-            row_weight.cpu().numpy() if row_weight is not None else None,
-            n_orig,
-        )
+    if return_registered:
+        # The registered cloud: the device rows' host copy in the world
+        # frame, in the caller's row order.
+        with stage("registered"):
+            res.source_registered = (
+                np.asarray(out["src"].cpu().numpy(), np.float64) + offset)
+            if rows is not None:
+                res = apply_permutation(
+                    res, rows.cpu().numpy(),
+                    row_weight.cpu().numpy() if row_weight is not None
+                    else None, n_orig,
+                )
     if T_init is not None:
         res.transform = res.transform @ T_init
         res.history_transform = res.history_transform @ T_init

@@ -292,8 +292,9 @@ def _run_fine(source, target, T, dtype, dev, fine_kwargs, device_data,
                         prepared_nn=prepared_nn, **common, **fk1)
     if res1.stop_reason != MAX_ITERATIONS:
         if fine_kwargs.get("return_registered", True):
-            Tw = np.asarray(res1.transform)
-            res1.source_registered = source @ Tw[:3, :3].T + Tw[:3, 3]
+            with stage("registered"):
+                Tw = np.asarray(res1.transform)
+                res1.source_registered = source @ Tw[:3, :3].T + Tw[:3, 3]
         return res1
 
     fk2 = dict(fine_kwargs, max_iterations=mi - K)
