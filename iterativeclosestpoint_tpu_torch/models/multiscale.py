@@ -59,12 +59,12 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     estimate_fine_grid_device,
 )
 from iterativeclosestpoint_tpu_torch.runtime.timing import (
+    count,
     registration_call,
     scope,
     stage,
 )
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
-from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
 
 
 @dataclasses.dataclass
@@ -88,19 +88,40 @@ class MultiscaleResult:
 
 
 def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
-    """Upload the centered f32 clouds and build the fine-level grids
-    (with the target's normals in plane mode). Returns (device_data,
-    prepared_nn, prepared_nn2): the second factory is the two-stage fine
-    level's boosted grid, or None where its gate refuses (or
-    ``two_stage`` is false: a mesh's fine level has one stage)."""
-    with stage("host_prep"):
-        offset = (center_offset(target) if fine_kwargs.get("center", True)
-                  else np.zeros(3))
-        src_local = (source - offset).astype(np.float32)
-        tgt_local = (target - offset).astype(np.float32)
-    with stage("upload", bytes=src_local.nbytes + tgt_local.nbytes) as done:
-        src_dev = torch.as_tensor(src_local, device=dev)
-        tgt_dev = torch.as_tensor(tgt_local, device=dev)
+    """Upload the f64 clouds, centre and cast them to f32 on ``dev``, and
+    build the fine-level grids (with the target's normals in plane mode).
+    Returns (device_data, prepared_nn, prepared_nn2): the second factory
+    is the two-stage fine level's boosted grid, or None where its gate
+    refuses (or ``two_stage`` is false: a mesh's fine level has one
+    stage).
+
+    The host makes no pass over either cloud (a caller's non-contiguous
+    array is copied once) and reads back the 24-byte offset alone: the
+    box's centre by ``aminmax``, an f64 subtract and a round to nearest,
+    so the clouds and the offset are ``center_offset`` and
+    ``(x - offset).astype(np.float32)`` bit for bit. On ``host_prep`` it
+    counts ``host_passes`` and ``prep_reads``."""
+    src_h, tgt_h = np.ascontiguousarray(source), np.ascontiguousarray(target)
+    with stage("upload", bytes=src_h.nbytes + tgt_h.nbytes) as done:
+        src64 = torch.as_tensor(src_h, device=dev)
+        tgt64 = torch.as_tensor(tgt_h, device=dev)
+        done((src64, tgt64))
+    with stage("host_prep") as done:
+        count("host_passes", (src_h is not source) + (tgt_h is not target))
+        if fine_kwargs.get("center", True):
+            lo, hi = torch.aminmax(tgt64, dim=0)
+            off = (lo + hi) / 2
+            offset = off.cpu().numpy()
+            count("prep_reads")
+            # Out of place: on the CPU the f64 tensors are the caller's.
+            src_dev = (src64 - off).to(torch.float32)
+            tgt_dev = (tgt64 - off).to(torch.float32)
+        else:
+            offset = np.zeros(3)
+            count("prep_reads", 0)
+            src_dev = src64.to(torch.float32)
+            tgt_dev = tgt64.to(torch.float32)
+        del src64, tgt64
         done((src_dev, tgt_dev))
     plane = fine_kwargs.get("estimator", "point") == "plane"
     with stage("grid_est"):
@@ -109,12 +130,12 @@ def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
             two_stage=two_stage)
     with stage("grid_build") as done:
         prepared_nn = make_pallas_nn_device(
-            tgt_local, target_dev=tgt_dev, est=grid_est, with_normals=plane)
+            None, target_dev=tgt_dev, est=grid_est, with_normals=plane)
         prepared_nn2 = None
         if boost2_est is not None:
             # Same target, same base-resolution normals.
             prepared_nn2 = make_pallas_nn_device(
-                tgt_local, target_dev=tgt_dev, est=boost2_est,
+                None, target_dev=tgt_dev, est=boost2_est,
                 with_normals=True, normals=prepared_nn[1][2])
         done((prepared_nn, prepared_nn2))
     return (src_dev, tgt_dev, offset), prepared_nn, prepared_nn2

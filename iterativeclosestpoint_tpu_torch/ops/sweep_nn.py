@@ -59,7 +59,9 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
     nn_exact,
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
+    _AUTO_TRANGE_SAMPLE_CAP,
     _COARSE_TRANGE_CAP,
+    _zrange_device,
     auto_trange,
     auto_zrange,
     estimate_grid_params,
@@ -599,8 +601,11 @@ def _pallas_fn(resolution: int, coarse_resolution: int, trange: int,
     return fn
 
 
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 def make_pallas_nn_device(
-    target_local: np.ndarray,
+    target_local: "np.ndarray | None",
     resolution: "int | None" = None,
     trange: "int | None" = None,
     slabs: int = 4,
@@ -615,14 +620,20 @@ def make_pallas_nn_device(
     """Grids + (nn_fn, nn_state, resolution) for the ICP driver;
     ``nn_state`` is (grid, coarse, normals).
 
-    Host work is the estimator pass (``estimate_grid_params``, or ``est``
-    precomputed) and one bbox sweep; both grid levels are sorted and padded
-    on the device of ``target_dev`` (default: ``target_local`` uploaded to
-    ``device``). The kernel-regime gate is the JAX package's: volume clouds
-    go to the z-column sweep on anisotropic cells, everything else to the
-    slab sweep. ``kernel`` "sweep" or "zcol" forces one of the two, as the
-    JAX package's option does (the kernel smoke check runs both on one
-    target).
+    Host work is the estimator pass (``estimate_grid_params``), none with
+    ``est`` precomputed. The box is one ``aminmax`` over ``target_dev``,
+    read back once (``prep_reads``), or a host ``bbox`` where
+    ``target_local`` is a copy in another precision (an f64 cloud beside
+    its f32 upload). Both grid levels are sorted and padded on the device
+    of ``target_dev`` (default: ``target_local`` uploaded to ``device``).
+    ``target_local`` may be None with ``target_dev`` and ``est``; the host
+    estimators (no ``est``, or a forced ``resolution`` or ``trange``)
+    raise a ``ValueError`` without it (``auto_zrange``'s pass runs on the
+    device then). The kernel-regime gate is the JAX package's: volume
+    clouds go to the z-column sweep on anisotropic cells, everything else
+    to the slab sweep. ``kernel`` "sweep" or "zcol" forces one of the two,
+    as the JAX package's option does (the kernel smoke check runs both on
+    one target).
 
     ``with_normals=True`` estimates the target's normals on its device
     (cell PCA at the unboosted base resolution: a boosted cell would hold
@@ -631,7 +642,41 @@ def make_pallas_nn_device(
     already estimated at that base resolution (the two-stage fine level
     builds a second factory over the same target).
     """
-    target_local = np.asarray(target_local)
+    if target_local is not None:
+        target_local = np.asarray(target_local)
+    if target_dev is None:
+        if target_local is None:
+            raise ValueError("make_pallas_nn_device needs target_local or "
+                             "target_dev")
+        target_dev = torch.as_tensor(target_local, dtype=torch.float32,
+                                     device=resolve_device(device))
+    n = target_dev.shape[0]
+    dev = target_dev.device
+
+    def host_cloud(what):
+        if target_local is None:
+            raise ValueError(f"make_pallas_nn_device: {what} runs on the "
+                             "host cloud; pass target_local, or est")
+        return target_local
+
+    if (target_local is not None
+            and _NP_DTYPE.get(target_dev.dtype) != target_local.dtype):
+        # The host copy holds other values than the device's: its box.
+        tmin, tmax = bbox(target_local)
+    else:
+        lo, hi = (v.double() for v in torch.aminmax(target_dev, dim=0))
+        tmin, tmax = torch.stack([lo, hi]).cpu().numpy()
+        count("prep_reads")
+
+    def zrange_at(r):
+        if target_local is not None:
+            return auto_zrange(target_local, r, tile_q=tile_q)
+        if tile_q != 128:
+            host_cloud(f"auto_zrange (tile_q={tile_q})")
+        # auto_zrange's pass on the device, bit for bit at a power-of-two r.
+        return _zrange_device(
+            target_dev, max(1, n // _AUTO_TRANGE_SAMPLE_CAP), lo, hi, r)
+
     coarse_trange = None
     est_zrange = None
     normals_resolution = resolution  # a forced R sizes the normals too
@@ -640,13 +685,15 @@ def make_pallas_nn_device(
          est_zrange) = est
     elif resolution is None and trange is None:
         (resolution, trange_est, coarse_trange, normals_resolution,
-         est_zrange) = estimate_grid_params(target_local)
+         est_zrange) = estimate_grid_params(host_cloud("the estimate"))
     else:
         if resolution is None:
             resolution, normals_resolution = auto_resolution_data(
-                target_local, surface_boost_occupancy=32, return_base=True)
+                host_cloud("auto_resolution_data"),
+                surface_boost_occupancy=32, return_base=True)
         trange_est = (trange if trange is not None
-                      else auto_trange(target_local, resolution))
+                      else auto_trange(host_cloud("auto_trange"),
+                                       resolution))
     # Kernel regime: the z-window column sweep wins on volume clouds when
     # its candidate count (12 slots × zrange, with the (x, y)-group
     # layout's padding) undercuts slabs × trange.
@@ -656,21 +703,15 @@ def make_pallas_nn_device(
     if (kernel == "auto" and trange is None and trange_est >= 2048
             and resolution <= 128):
         zr_est = (est_zrange if est_zrange is not None
-                  else auto_zrange(target_local, resolution, tile_q=tile_q))
-        pad = 1.0 + (resolution**2 * (tile_q - 1) / 2) / max(
-            len(target_local), 1)
+                  else zrange_at(resolution))
+        pad = 1.0 + (resolution**2 * (tile_q - 1) / 2) / max(n, 1)
         if 12 * zr_est * pad < 0.7 * slabs * trange_est:
             zrange = zr_est
     if kernel == "zcol":
         zrange = (est_zrange if est_zrange is not None
-                  else auto_zrange(target_local, resolution, tile_q=tile_q))
+                  else zrange_at(resolution))
     trange = trange_est
-    tmin, tmax = bbox(target_local)
-    if target_dev is None:
-        target_dev = torch.as_tensor(target_local, dtype=torch.float32,
-                                     device=resolve_device(device))
     ext = float((tmax - tmin).max())
-    dev = target_dev.device
     origin = torch.as_tensor(tmin, dtype=torch.float32, device=dev)
     if not with_normals:
         normals = None
@@ -706,7 +747,7 @@ def make_pallas_nn_device(
             torch.tensor(max(ext / resolution, 1e-9), dtype=torch.float32,
                          device=dev),
             cell_c, normals, trange=trange, **levels)
-    global_fallback = len(target_local) <= 300_000
+    global_fallback = n <= 300_000
     return (
         _pallas_fn(resolution, coarse_resolution, trange, coarse_trange,
                    global_fallback, with_normals, slabs=slabs, tile_q=tile_q,

@@ -5,11 +5,16 @@ C-contiguous (N,3) array takes a scalar pairwise inner loop, while a
 strided per-column scan vectorizes. The values are bit-identical to the
 axis-0 form; ``bbox`` returns float64 vectors, so the geometry math
 downstream (grid origin, cell size, centering offset) is f64 by contract.
+Each ``bbox`` counts one ``host_passes`` on the innermost open span
+(``runtime/timing.py``): every numpy estimator of the grid starts with
+one, so the counter says how many host routines read a whole cloud.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from iterativeclosestpoint_tpu_torch.runtime.timing import count
 
 
 def bbox(pts: np.ndarray):
@@ -17,6 +22,7 @@ def bbox(pts: np.ndarray):
 
     Returns float64 3-vectors.
     """
+    count("host_passes")
     pts = np.asarray(pts)
     lo = np.empty(pts.shape[1], np.float64)
     hi = np.empty(pts.shape[1], np.float64)
