@@ -852,9 +852,7 @@ def phase_kernels(data, vdata, data10, spec):
     can launch it with. Returns {name: {key: [entry, ...]}}; a key is the
     launch shape the wrapper tallies in ``LAUNCH_SHAPES`` (K1: (slabs,
     trange), its tile count follows the query layout)."""
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        _prepare_fine,
-    )
+    from iterativeclosestpoint_tpu_torch.models.prep import prepare_level
     from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
         build_zgrid,
         grouped_tile_order_device,
@@ -867,7 +865,6 @@ def phase_kernels(data, vdata, data10, spec):
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         estimate_grid_params,
     )
-    from iterativeclosestpoint_tpu_torch.utils.hostmath import center_offset
 
     dev = torch.device(DEVICE)
     tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
@@ -883,7 +880,9 @@ def phase_kernels(data, vdata, data10, spec):
 
     # Terrain 1M: the plane path's grids (with normals); the headline's
     # point grids have the same shapes.
-    _, prep, prep2 = _prepare_fine(data["src"], data["tgt"], PLANE_KW, dev)
+    _, prep, prep2, _ = prepare_level(data["src"], data["tgt"], dev,
+                                      nn_backend="pallas", estimator="plane",
+                                      two_stage=True)
     check(prep2 is None, "1M terrain: the two-stage gate opened")
     tgt_dev = torch.as_tensor(data["tgt_local"], device=dev)
     _hold_slab_grids(results, "terrain 1M", prep, data["tgt_local"],
@@ -898,8 +897,9 @@ def phase_kernels(data, vdata, data10, spec):
     # Terrain 10M, the two-stage plane level: the base and boosted grids
     # (with normals), the middle level's own grid (stride 18, point mode)
     # and the first coarse level (stride 334).
-    _, prep, prep2 = _prepare_fine(data10["src"], data10["tgt"], PLANE_KW,
-                                   dev)
+    _, prep, prep2, _ = prepare_level(data10["src"], data10["tgt"], dev,
+                                      nn_backend="pallas", estimator="plane",
+                                      two_stage=True)
     check(prep2 is not None, "10M terrain: the two-stage gate refused")
     tgt_dev = torch.as_tensor(data10["tgt_local"], device=dev)
     for label, p in (("terrain 10M base", prep),
@@ -914,16 +914,17 @@ def phase_kernels(data, vdata, data10, spec):
     check(len(strides) == 2, f"10M ladder {strides}")
     _hold_k3(results, *coarse_level(data10, strides[0]), spec,
              f"{tpu}:1103", full=False)
-    # The middle level centers its own subsample, as icp_register does.
-    mid_tgt = data10["tgt"][::strides[1]]
-    mid_local = mid_tgt - center_offset(mid_tgt)
-    mid_dev = torch.as_tensor(mid_local, dtype=torch.float32, device=dev)
+    # The middle level's own prep, as icp_register makes it (the coarse
+    # levels' backend "auto" is the slab sweep at its size).
+    (_, mid_dev, _), mid_nn, _, _ = prepare_level(
+        data10["src"][::strides[1]], data10["tgt"][::strides[1]], dev,
+        nn_backend="auto")
+    check(hasattr(mid_nn[0], "layout_group"),
+          "10M middle level: backend auto did not pick the slab sweep")
     _hold_slab_grids(results, f"terrain 10M middle level (stride "
-                     f"{strides[1]})",
-                     make_pallas_nn_device(mid_local, target_dev=mid_dev),
-                     mid_local.astype(np.float32), mid_dev, rng, spec,
-                     full=False)
-    del mid_dev
+                     f"{strides[1]})", mid_nn, mid_dev.cpu().numpy(),
+                     mid_dev, rng, spec, full=False)
+    del mid_dev, mid_nn
 
     # Volume: the z-column sweep on anisotropic cells.
     tgt_local = vdata["tgt_local"]
@@ -1104,9 +1105,7 @@ def phase_main_path(tag, data, measured, zcol, kw):
     from torch.profiler import ProfilerActivity, profile
 
     from iterativeclosestpoint_tpu_torch import icp_register_multiscale
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        _prepare_fine,
-    )
+    from iterativeclosestpoint_tpu_torch.models.prep import prepare_level
     from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
     from iterativeclosestpoint_tpu_torch.ops.se3 import registration_error
 
@@ -1177,7 +1176,9 @@ def phase_main_path(tag, data, measured, zcol, kw):
     if kw.get("estimator") == "plane":
         check(not _gate(tag, data["tgt_local"]),
               f"{tag}: the two-stage gate opened")
-    _, prepared, prepared2 = _prepare_fine(src, tgt, kw, torch.device(DEVICE))
+    _, prepared, prepared2, _ = prepare_level(
+        src, tgt, torch.device(DEVICE), nn_backend="pallas",
+        estimator=kw.get("estimator", "point"), two_stage=True)
     check(prepared2 is None, f"{tag}: the two-stage gate opened")
     check((prepared[0].layout_group == "xy") == zcol,
           f"regime gate picked layout {prepared[0].layout_group!r}")
@@ -1208,9 +1209,7 @@ def phase_plane_10m(data, measured):
     guard, one warm-up and one timed run, a synced breakdown, the boosted
     resolution, and exactness at the final pose on a sample."""
     from iterativeclosestpoint_tpu_torch import icp_register_multiscale
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        _prepare_fine,
-    )
+    from iterativeclosestpoint_tpu_torch.models.prep import prepare_level
     from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
     from iterativeclosestpoint_tpu_torch.ops.cellblock import (
         auto_resolution_data,
@@ -1250,7 +1249,9 @@ def phase_plane_10m(data, measured):
     print(f"[{tag}] rmse {fine.rmse:.6f}, stop {fine.message!r}, "
           f"registration_error vs T_true {err:.6f} m over every 10th "
           "point (not gated)", flush=True)
-    _, _, prepared2 = _prepare_fine(src, tgt, kw, torch.device(DEVICE))
+    _, _, prepared2, _ = prepare_level(
+        src, tgt, torch.device(DEVICE), nn_backend="pallas",
+        estimator=kw["estimator"], two_stage=True)
     _final_pose(tag, data, fine.transform, prepared2, sample=SAMPLE_10M)
     return by_shape
 
@@ -1438,22 +1439,22 @@ def phase_card_vs_cpu(data):
 
 def _spy_pallas_grids():
     """Keep the grids each pallas run builds (``make_pallas_nn_device`` as
-    ``models/icp.py`` calls it), to hold the run's launches on them.
+    ``models/prep.py`` calls it), to hold the run's launches on them.
     Returns (kept, restore); kept holds (target_local, (fn, state, R))."""
-    from iterativeclosestpoint_tpu_torch.models import icp as ticp
+    from iterativeclosestpoint_tpu_torch.models import prep
 
-    orig = ticp.make_pallas_nn_device
+    orig = prep.make_pallas_nn_device
     kept = []
 
-    def spy(target_local, *a, **k):
-        out = orig(target_local, *a, **k)
-        kept.append((np.asarray(target_local, np.float32), out))
+    def spy(*a, target_dev, **k):
+        out = orig(*a, target_dev=target_dev, **k)
+        kept.append((target_dev.cpu().numpy().astype(np.float32), out))
         return out
 
-    ticp.make_pallas_nn_device = spy
+    prep.make_pallas_nn_device = spy
 
     def restore():
-        ticp.make_pallas_nn_device = orig
+        prep.make_pallas_nn_device = orig
 
     return kept, restore
 
@@ -1623,9 +1624,7 @@ def phase_product(measured, spec):
 
     from iterativeclosestpoint_tpu_torch import icp_register_multiscale
     from iterativeclosestpoint_tpu_torch.io.las import read_las
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        _prepare_fine,
-    )
+    from iterativeclosestpoint_tpu_torch.models.prep import prepare_level
     from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
     from iterativeclosestpoint_tpu_torch.ops.se3 import registration_error
     from iterativeclosestpoint_tpu_torch.runtime.checkpoint import (
@@ -1730,8 +1729,7 @@ def phase_product(measured, spec):
         pdata = dict(src=src, tgt=tgt, offset=offset,
                      src_local=(src - offset).astype(np.float32),
                      tgt_local=(tgt - offset).astype(np.float32))
-        _, prepared, _ = _prepare_fine(src, tgt, dict(nn_backend="pallas"),
-                                       dev)
+        _, prepared, _, _ = prepare_level(src, tgt, dev, nn_backend="pallas")
         _final_pose("7c run", pdata, T_cli, prepared)
         # The 1M pair is synthesized at the CLI's extent, not the
         # headline's: where run (c) launched a shape phase 3 did not hold,
@@ -2179,9 +2177,7 @@ def phase_mesh(data, data10, measured, spec, small_cpu):
         icp_register_multiscale,
     )
     from iterativeclosestpoint_tpu_torch.io.las import read_las, write_las
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        _prepare_fine,
-    )
+    from iterativeclosestpoint_tpu_torch.models.prep import prepare_level
     from iterativeclosestpoint_tpu_torch.models.posegraph import (
         detect_overlap_edges,
         optimize_pose_graph,
@@ -2213,7 +2209,7 @@ def phase_mesh(data, data10, measured, spec, small_cpu):
     kw = dict(HEADLINE_KW, device=DEVICE)
     src, tgt = data["src"], data["tgt"]
     base = icp_register_multiscale(src, tgt, **kw).final
-    _, prepared, _ = _prepare_fine(src, tgt, kw, dev)
+    _, prepared, _, _ = prepare_level(src, tgt, dev, nn_backend="pallas")
     by_dp = {}
     for tag, mesh in (("9a dp", one), ("9a dp", four)):
         tag = f"{tag} {mesh.size} rank{'s' if mesh.size > 1 else ''}"
@@ -3809,9 +3805,7 @@ def phase_first_tie(data, measured, spec):
     (``first_tie``, ``host_factory``, ``autoseg_one``, ``autoseg``)."""
     from iterativeclosestpoint_tpu_torch import icp_register_multiscale
     from iterativeclosestpoint_tpu_torch.models import icp as ticp
-    from iterativeclosestpoint_tpu_torch.models.multiscale import (
-        _prepare_fine,
-    )
+    from iterativeclosestpoint_tpu_torch.models.prep import prepare_level
     from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
     from iterativeclosestpoint_tpu_torch.ops.normals import (
         estimate_normals_cellpca_device,
@@ -4038,7 +4032,9 @@ def phase_first_tie(data, measured, spec):
           "13: the auto-segmented run is not the one-dispatch run")
     both = {**paths["autoseg_one"], **paths["autoseg"]}
     if _unheld(both, measured):
-        _, prep2, _ = _prepare_fine(d2["src"], d2["tgt"], kw, dev)
+        _, prep2, _, _ = prepare_level(d2["src"], d2["tgt"], dev,
+                                       nn_backend="pallas",
+                                       estimator=kw.get("estimator", "point"))
         tgt2 = torch.as_tensor(d2["tgt_local"], device=dev)
         _hold_slab_grids(measured, "13 autoseg 2M", prep2, d2["tgt_local"],
                          tgt2, np.random.default_rng(9), spec, full=False,

@@ -23,9 +23,9 @@ T_cum, and Kabsch fits T_cum directly from the pristine source, so the
 iteration state is a function of the carry alone: a run split into
 segments (``segment_iterations``, for live progress and a cooperative
 stop) or resumed from a carry (``resume_carry``) follows the one-dispatch
-trajectory bit for bit. Coordinates are centered on the host by an f64
-offset; device math is f32, and the result is re-based to the world frame
-on the way out.
+trajectory bit for bit. Coordinates are centred by an f64 offset
+(``models/prep.py`` prepares every level); device math is f32, and the
+result is re-based to the world frame on the way out.
 
 Every cross-row statistic goes through a reducer ``ps``: None (the
 identity) on one device, a mesh rank's ``Comm.psum`` on the
@@ -43,27 +43,19 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from iterativeclosestpoint_tpu_torch.ops.cellblock import (
-    auto_resolution_data,
-    make_cellblock_nn,
-    morton_order,
+from iterativeclosestpoint_tpu_torch.models.prep import (
+    check_prepared,
+    prepare_level,
 )
-from iterativeclosestpoint_tpu_torch.ops.hashgrid import make_hashgrid_nn
 from iterativeclosestpoint_tpu_torch.ops.kabsch import kabsch_masked
-from iterativeclosestpoint_tpu_torch.ops.normals import (
-    estimate_normals_cellpca,
-)
 from iterativeclosestpoint_tpu_torch.ops.se3 import apply_transform, se3_exp
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     grouped_tile_order_device,
 )
-from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import nn_exact
-from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
 from iterativeclosestpoint_tpu_torch.runtime.timing import (
     registration_call,
     stage,
 )
-from iterativeclosestpoint_tpu_torch.utils import hostmath
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 
 # Stop reasons (host-readable), the JAX package's codes.
@@ -348,77 +340,6 @@ def icp_core(source, weight, target, nn_state, *, nn_fn: Callable,
     return out
 
 
-def _brute_adapter(query, target, nn_state):
-    """Brute-force nn_fn: f32 goes through K3 (its plain version for CPU
-    tensors), f64 through the plain ``nn_bruteforce`` (``nn_exact``)."""
-    del nn_state
-    idx, dist = nn_exact(query, target)
-    return target[idx], dist
-
-
-def _brute_plane_adapter(query, target, nn_state):
-    """Brute-force nn_fn of the plane estimator (``nn_state`` = the
-    target's normals): the normal is gathered at the winner's index."""
-    idx, dist = nn_exact(query, target)
-    return target[idx], dist, nn_state[idx]
-
-
-def _default_nn(nn_backend: str, source_local: np.ndarray,
-                target_local: np.ndarray, grid_resolution, cell_capacity=None,
-                *, estimator: str = "point", source_dev, target_dev):
-    """Pick the NN kernel; returns (nn_fn, nn_state, rows | None,
-    weight | None, resolution | None).
-
-    'auto': brute force while the all-pairs work is small (n·m ≤ 2³¹), the
-    slab sweep beyond. The pallas backend lays the source out in
-    x-group-aligned tiles (``rows``, with weight 0 on padding rows); the
-    cellblock backend in Morton order (``rows``, no padding). The plane
-    estimator needs normals: host cell PCA for brute force, the device
-    build packed into the grids for pallas.
-    """
-    m = len(target_local)
-    n = len(source_local)
-    if nn_backend == "auto":
-        nn_backend = "bruteforce" if n * m <= 2**31 else "pallas"
-    if estimator == "plane" and nn_backend not in ("bruteforce", "pallas"):
-        raise ValueError(
-            "estimator='plane' supports nn_backend 'bruteforce' or 'pallas'")
-    if nn_backend == "bruteforce":
-        if estimator == "plane":
-            nrm = estimate_normals_cellpca(
-                target_local, auto_resolution_data(target_local))
-            return (_brute_plane_adapter,
-                    torch.as_tensor(nrm, dtype=target_dev.dtype,
-                                    device=target_dev.device),
-                    None, None, None)
-        return _brute_adapter, (), None, None, None
-    if nn_backend == "cellblock":
-        nn_fn, grid, resolution = make_cellblock_nn(
-            target_local, resolution=grid_resolution or None,
-            dtype=target_dev.dtype, device=target_dev.device)
-        rows = torch.as_tensor(morton_order(source_local, resolution),
-                               device=target_dev.device)
-        return nn_fn, grid, rows, None, resolution
-    if nn_backend == "hashgrid":
-        resolution = grid_resolution or 64
-        nn_fn, grid = make_hashgrid_nn(
-            target_local, resolution=resolution, capacity=cell_capacity,
-            dtype=target_dev.dtype, device=target_dev.device)
-        return nn_fn, grid, None, None, resolution
-    if nn_backend == "pallas":
-        nn_fn, state, resolution = make_pallas_nn_device(
-            target_local, resolution=grid_resolution, target_dev=target_dev,
-            with_normals=estimator == "plane",
-        )
-        rows, weight = grouped_tile_order_device(
-            source_dev, state[0].origin, state[0].cell_size,
-            resolution=resolution, tile_q=nn_fn.tile_q,
-            group=nn_fn.layout_group,
-        )
-        return nn_fn, state, rows, weight, resolution
-    raise ValueError(f"unknown nn_backend {nn_backend!r}")
-
-
 def _rebase_transform(T_local: np.ndarray, offset: np.ndarray) -> np.ndarray:
     """T_world = Shift(offset) @ T_local @ Shift(-offset)."""
     T = np.asarray(T_local, np.float64).copy()
@@ -569,15 +490,16 @@ def apply_permutation(res: ICPResult, rows: np.ndarray,
 
 def _prep_fine_source(src_raw, T_loc, origin, cell_size, *, resolution,
                       tile_q=128, group="x", fold=True):
-    """Fine-level source prep: apply the local-frame initial transform,
-    build the x-group-aligned layout at that pose, gather.
+    """The sweep's source prep: apply the local-frame initial transform
+    (None: the source is at its pose), build the x-group-aligned layout at
+    that pose, gather.
 
     ``fold=False`` keys the layout by the transformed positions (tile
     coherence needs the current pose) but returns the RAW source rows: for
     callers whose loop carry already holds the pose (the two-stage fine
     level resumes through ``resume_carry``), where folding would apply it
     twice."""
-    src = apply_transform(T_loc, src_raw)
+    src = src_raw if T_loc is None else apply_transform(T_loc, src_raw)
     rows, weight = grouped_tile_order_device(
         src, origin, cell_size, resolution=resolution, tile_q=tile_q,
         group=group,
@@ -729,76 +651,49 @@ def icp_register(
         T_init = np.asarray(initial_transform, np.float64)
         if device_data is None:
             source = source @ T_init[:3, :3].T + T_init[:3, 3]
-
-    if device_data is not None:
-        offset = np.asarray(device_data[2], np.float64)
-    else:
-        offset = hostmath.center_offset(target) if center else np.zeros(3)
     n_orig = len(source)
-    rows = row_weight = None
-    nn_res = None
-    src_np = tgt_np = None
-    if device_data is not None:
-        src_local = device_data[0].to(dtype)
-        tgt_local = device_data[1].to(dtype)
-        if T_init is not None and prepared_nn is None:
-            T_loc = _rebase_transform(T_init, -offset)
-            src_local = apply_transform(
-                torch.as_tensor(T_loc, dtype=dtype, device=src_local.device),
-                src_local)
-    else:
-        with stage("host_prep"):
-            src_np = source - offset
-            tgt_np = target - offset
-        isz = torch.empty((), dtype=dtype).element_size()
-        with stage("upload",
-                   bytes=(len(src_np) + len(tgt_np)) * 3 * isz) as done:
-            src_local = torch.as_tensor(src_np, dtype=dtype, device=dev)
-            tgt_local = torch.as_tensor(tgt_np, dtype=dtype, device=dev)
-            done((src_local, tgt_local))
-    if nn_fn is not None:
-        pass  # the caller's NN and state; the source keeps its order
-    elif prepared_nn is not None:
-        nn_fn, nn_state, resolution = prepared_nn
-        nn_res = resolution
-        if getattr(nn_fn, "with_normals", False) != (estimator == "plane"):
-            raise ValueError(
-                "prepared_nn was built with with_normals="
-                f"{getattr(nn_fn, 'with_normals', False)} but "
-                f"estimator={estimator!r}; rebuild the factory to match")
+    (src_local, tgt_local, offset), level_nn, _, rows = prepare_level(
+        source, target, dev, dtype=dtype, center=center,
+        nn_backend=(nn_backend if nn_fn is None and prepared_nn is None
+                    else None),
+        estimator=estimator, grid_resolution=grid_resolution,
+        cell_capacity=cell_capacity, device_data=device_data)
+    # The pose applied on the device: a caller's device clouds take the
+    # initial transform there (host clouds were moved before the upload).
+    T_loc, fold = None, True
+    if T_init is not None and device_data is not None:
+        T_loc = _rebase_transform(T_init, -offset)
+    elif (layout_transform is not None and device_data is not None
+          and prepared_nn is not None):
+        # Layout-only pose (the two-stage fine level): the carry holds
+        # the full pose. Not applied on the generic resume path: a
+        # resumed run's layout must match the uninterrupted run's
+        # (row order feeds reduction order).
+        T_loc = _rebase_transform(
+            np.asarray(layout_transform, np.float64), -offset)
+        fold = False
+    if T_loc is not None:
+        T_loc = torch.as_tensor(T_loc, dtype=dtype, device=src_local.device)
+    row_weight = nn_res = None
+    sweep = False  # the caller's nn_fn: the source keeps its order
+    if nn_fn is None:
+        nn_fn, nn_state, nn_res = prepared_nn or level_nn
+        if prepared_nn is not None:
+            check_prepared(nn_fn, estimator)
+        sweep = hasattr(nn_fn, "layout_group")
+    if sweep:
+        # The query layout is keyed on the sweep's grid at the pose.
         grid0 = nn_state[0]
-        fold = True
-        T_loc = np.eye(4)
-        if T_init is not None and device_data is not None:
-            T_loc = _rebase_transform(T_init, -offset)
-        elif layout_transform is not None and device_data is not None:
-            # Layout-only pose (the two-stage fine level): the carry holds
-            # the full pose. Not applied on the generic resume path: a
-            # resumed run's layout must match the uninterrupted run's
-            # (row order feeds reduction order).
-            T_loc = _rebase_transform(
-                np.asarray(layout_transform, np.float64), -offset)
-            fold = False
         with stage("prep") as done:
             src_local, rows, row_weight = _prep_fine_source(
-                src_local,
-                torch.as_tensor(T_loc, dtype=dtype, device=src_local.device),
-                grid0.origin, grid0.cell_size, resolution=resolution,
-                tile_q=nn_fn.tile_q, group=nn_fn.layout_group, fold=fold,
+                src_local, T_loc, grid0.origin, grid0.cell_size,
+                resolution=nn_res, tile_q=nn_fn.tile_q,
+                group=nn_fn.layout_group, fold=fold,
             )
             done(src_local)
     else:
-        if src_np is None:
-            with stage("host_prep"):
-                src_np = source - offset
-                tgt_np = target - offset
-        with stage("nn_build") as done:
-            nn_fn, nn_state, rows, row_weight, nn_res = _default_nn(
-                nn_backend, src_np, tgt_np, grid_resolution, cell_capacity,
-                estimator=estimator, source_dev=src_local,
-                target_dev=tgt_local,
-            )
-            done(nn_state)
+        if T_loc is not None and fold:
+            src_local = apply_transform(T_loc, src_local)
         if rows is not None:
             src_local = src_local[rows]
     weight = (row_weight.to(dtype) if row_weight is not None

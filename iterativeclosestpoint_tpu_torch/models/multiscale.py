@@ -51,15 +51,13 @@ import torch
 from iterativeclosestpoint_tpu_torch.models.icp import (
     MAX_ITERATIONS,
     ICPResult,
-    _compose_callback,
     icp_register,
 )
-from iterativeclosestpoint_tpu_torch.ops.sweep_nn import make_pallas_nn_device
-from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
-    estimate_fine_grid_device,
+from iterativeclosestpoint_tpu_torch.models.prep import (
+    nn_backend_for,
+    prepare_level,
 )
 from iterativeclosestpoint_tpu_torch.runtime.timing import (
-    count,
     registration_call,
     scope,
     stage,
@@ -88,57 +86,16 @@ class MultiscaleResult:
 
 
 def _prepare_fine(source, target, fine_kwargs, dev, two_stage=True):
-    """Upload the f64 clouds, centre and cast them to f32 on ``dev``, and
-    build the fine-level grids (with the target's normals in plane mode).
-    Returns (device_data, prepared_nn, prepared_nn2): the second factory
-    is the two-stage fine level's boosted grid, or None where its gate
-    refuses (or ``two_stage`` is false: a mesh's fine level has one
-    stage).
-
-    The host makes no pass over either cloud (a caller's non-contiguous
-    array is copied once) and reads back the 24-byte offset alone: the
-    box's centre by ``aminmax``, an f64 subtract and a round to nearest,
-    so the clouds and the offset are ``center_offset`` and
-    ``(x - offset).astype(np.float32)`` bit for bit. On ``host_prep`` it
-    counts ``host_passes`` and ``prep_reads``."""
-    src_h, tgt_h = np.ascontiguousarray(source), np.ascontiguousarray(target)
-    with stage("upload", bytes=src_h.nbytes + tgt_h.nbytes) as done:
-        src64 = torch.as_tensor(src_h, device=dev)
-        tgt64 = torch.as_tensor(tgt_h, device=dev)
-        done((src64, tgt64))
-    with stage("host_prep") as done:
-        count("host_passes", (src_h is not source) + (tgt_h is not target))
-        if fine_kwargs.get("center", True):
-            lo, hi = torch.aminmax(tgt64, dim=0)
-            off = (lo + hi) / 2
-            offset = off.cpu().numpy()
-            count("prep_reads")
-            # Out of place: on the CPU the f64 tensors are the caller's.
-            src_dev = (src64 - off).to(torch.float32)
-            tgt_dev = (tgt64 - off).to(torch.float32)
-        else:
-            offset = np.zeros(3)
-            count("prep_reads", 0)
-            src_dev = src64.to(torch.float32)
-            tgt_dev = tgt64.to(torch.float32)
-        del src64, tgt64
-        done((src_dev, tgt_dev))
-    plane = fine_kwargs.get("estimator", "point") == "plane"
-    with stage("grid_est"):
-        grid_est, boost2_est = estimate_fine_grid_device(
-            tgt_dev, fine_kwargs.get("grid_resolution"), plane=plane,
-            two_stage=two_stage)
-    with stage("grid_build") as done:
-        prepared_nn = make_pallas_nn_device(
-            None, target_dev=tgt_dev, est=grid_est, with_normals=plane)
-        prepared_nn2 = None
-        if boost2_est is not None:
-            # Same target, same base-resolution normals.
-            prepared_nn2 = make_pallas_nn_device(
-                None, target_dev=tgt_dev, est=boost2_est,
-                with_normals=True, normals=prepared_nn[1][2])
-        done((prepared_nn, prepared_nn2))
-    return (src_dev, tgt_dev, offset), prepared_nn, prepared_nn2
+    """The fine level's ``prepare_level`` in f32 with the slab sweep, its
+    spans outside the ``fine`` scope: (device_data, prepared_nn,
+    prepared_nn2), the last the two-stage level's boosted grid or None
+    (its gate refuses, or ``two_stage`` is false: a mesh's fine level)."""
+    device_data, nn, nn2, _ = prepare_level(
+        source, target, dev, center=fine_kwargs.get("center", True),
+        nn_backend="pallas", estimator=fine_kwargs.get("estimator", "point"),
+        grid_resolution=fine_kwargs.get("grid_resolution"),
+        two_stage=two_stage)
+    return device_data, nn, nn2
 
 
 @registration_call
@@ -210,8 +167,7 @@ def icp_register_multiscale(
         and (mesh is None or mesh.process_count == 1)
         and dtype == torch.float32
         and fine_kwargs.get("nn_fn") is None  # a caller's NN: no grids
-        and (fine_backend == "pallas"
-             or (fine_backend == "auto" and n * len(target) > 2**31))
+        and nn_backend_for(fine_backend, n, len(target)) == "pallas"
     )
     T = (np.asarray(initial_transform, np.float64)
          if initial_transform is not None else None)
@@ -267,28 +223,16 @@ def _run_partitioned(source, target, T, dtype, dev, mesh, fine_kwargs):
 
 def _run_sharded(source, target, T, dtype, mesh, fine_kwargs, device_data,
                  prepared_nn):
-    """The fine level data-parallel over ``mesh``: from the prepared device
-    inputs (the source moved by ``T`` on its device, ``T`` composed into
-    the result as ``icp_register`` composes it), else from the host with
-    ``T`` as the initial transform."""
+    """The fine level data-parallel over ``mesh``, from the prepared
+    device inputs (``T`` applied to the source on its device) or from the
+    host."""
     from iterativeclosestpoint_tpu_torch.parallel.sharded import (
-        compose_initial,
         icp_register_sharded,
-        rebase_on_device,
     )
 
-    if device_data is None:
-        return icp_register_sharded(source, target, mesh=mesh, dtype=dtype,
-                                    initial_transform=T, **fine_kwargs)
-    fk = dict(fine_kwargs)
-    if T is not None:
-        device_data = rebase_on_device(T, device_data, dtype)
-        for key in ("progress_callback", "segment_callback"):
-            fk[key] = _compose_callback(fk.get(key), T)
-    res = icp_register_sharded(source, target, mesh=mesh, dtype=dtype,
-                               device_data=device_data,
-                               prepared_nn=prepared_nn, **fk)
-    return res if T is None else compose_initial(res, T)
+    return icp_register_sharded(source, target, mesh=mesh, dtype=dtype,
+                                initial_transform=T, device_data=device_data,
+                                prepared_nn=prepared_nn, **fine_kwargs)
 
 
 # Stage-1 length of the two-stage boosted fine level: enough plane

@@ -20,13 +20,16 @@ The loop is ``models.icp.icp_core`` itself and segmented runs go through
 segment-boundary carries and bit-identical resume work as on one device.
 A 1-rank mesh computes exactly what ``icp_register`` computes.
 
-On a mesh over several processes (``parallel.mesh.init_multihost``) each
-process holds the full ``source`` and ``target`` (the JAX package's host
-path, :316-320), builds the NN state and layout itself, and uploads only
-its ranks' shards; ``return_registered`` gathers the registered rows to
-every process. ``source_global`` (from ``parallel.ingest.load_las_sharded``)
-is the sharded ingest, where no process holds the source: the NN state
-comes from the target alone and rows stay in file order (:226-241).
+Without the multiscale fine level's device inputs the clouds and the NN
+state come from ``models.prep.prepare_level`` on the mesh's first local
+device. On a mesh over several processes
+(``parallel.mesh.init_multihost``) each process holds the full
+``source`` and ``target`` (the JAX package's host path, :316-320), makes
+that prep itself and places only its ranks' shards; ``return_registered``
+gathers the registered rows to every process. ``source_global`` (from
+``parallel.ingest.load_las_sharded``) is the sharded ingest, where no
+process holds the source: the NN state comes from the target alone and
+rows stay in file order (:226-241).
 
 The JAX package's ≥2M-points-per-chip auto-segmentation (:350-356)
 applies where a callback can see it, as on one device
@@ -43,7 +46,6 @@ import torch
 from iterativeclosestpoint_tpu_torch.models.icp import (
     ICPResult,
     _compose_callback,
-    _default_nn,
     _pose_magnitudes,
     _rebase_transform,
     _resume_state,
@@ -53,6 +55,11 @@ from iterativeclosestpoint_tpu_torch.models.icp import (
     icp_core,
     package_result,
 )
+from iterativeclosestpoint_tpu_torch.models.prep import (
+    check_prepared,
+    nn_backend_for,
+    prepare_level,
+)
 from iterativeclosestpoint_tpu_torch.ops.se3 import apply_transform
 from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
     grouped_tile_order_device,
@@ -61,12 +68,10 @@ from iterativeclosestpoint_tpu_torch.parallel.mesh import (
     Mesh,
     _replicas,
     make_mesh,
-    pad_to_multiple,
     process_allgather,
     to_global,
 )
 from iterativeclosestpoint_tpu_torch.runtime.timing import stage
-from iterativeclosestpoint_tpu_torch.utils import hostmath
 from iterativeclosestpoint_tpu_torch.utils.device import resolve_device
 
 
@@ -182,9 +187,10 @@ def icp_register_sharded(
     resolution) from ``ops.sweep_nn.make_pallas_nn_device`` are the
     multiscale fine level's device inputs: the query layout is built on
     their device and each rank's shard and the grids are replicated from
-    there. ``initial_transform`` pre-aligns the source on the host and is
-    composed into the result; the overlapped device inputs
-    (``device_data``/``prepared_nn``) are for a single-process mesh.
+    there. ``initial_transform`` pre-aligns the source (on the host, or
+    on its device with ``device_data``) and is composed into the result;
+    the device inputs (``device_data``/``prepared_nn``) are for a
+    single-process mesh.
 
     ``source_global`` = (shards, weights, n_rows) from
     ``parallel.ingest.load_las_sharded``: per global rank, the rank's
@@ -227,85 +233,63 @@ def icp_register_sharded(
         if resume_carry is not None:
             raise ValueError(
                 "initial_transform and resume_carry are mutually exclusive")
-        if device_data is not None:
-            raise ValueError(
-                "initial_transform with device_data: apply the transform "
-                "to the device source instead (models/multiscale.py does)")
         T_init = np.asarray(initial_transform, np.float64)
-        source = source @ T_init[:3, :3].T + T_init[:3, 3]
-    if device_data is not None:
-        offset = np.asarray(device_data[2], np.float64)
-    else:
-        offset = hostmath.center_offset(target) if center else np.zeros(3)
+        if device_data is None:
+            source = source @ T_init[:3, :3].T + T_init[:3, 3]
 
+    # The single-device prep on the first device; a sharded ingest builds
+    # the NN from the target alone.
+    (src_loc, tgt_loc, offset), level_nn, _, rows_d = prepare_level(
+        source if source_global is None else None, target, dev0,
+        dtype=dtype, center=center,
+        nn_backend=(None if prepared_nn is not None
+                    else nn_backend_for(nn_backend, n_orig, len(target))),
+        estimator=estimator, grid_resolution=grid_resolution,
+        cell_capacity=cell_capacity, device_data=device_data)
+    if T_init is not None and device_data is not None:
+        # A caller's device clouds take the initial pose on the device.
+        src_loc = apply_transform(torch.as_tensor(
+            _rebase_transform(T_init, -offset), dtype=dtype,
+            device=src_loc.device), src_loc)
+    nn_fn, nn_state, nn_res = prepared_nn or level_nn
+    if prepared_nn is not None:
+        check_prepared(nn_fn, estimator)
     rows = row_weight = None
     if source_global is not None:
-        if nn_backend == "auto":
-            nn_backend = ("bruteforce" if n_orig * len(target) <= 2**31
-                          else "pallas")
-        tgt_np = target - offset
-        tgt_loc = torch.as_tensor(tgt_np, dtype=dtype, device=dev0)
-        # The NN state from the target alone; the dummy source's layout
-        # is dropped (no process holds the source).
-        nn_fn, nn_state, _, _, nn_res = _default_nn(
-            nn_backend, np.zeros((1, 3)), tgt_np, grid_resolution,
-            cell_capacity, estimator=estimator,
-            source_dev=tgt_loc.new_zeros((1, 3)), target_dev=tgt_loc)
+        # Rows stay in file order: no process holds the source.
         shards = [None if s is None else s.to(mesh.devices[r], dtype)
                   for r, s in enumerate(source_global[0])]
         weights = [None if w is None else w.to(mesh.devices[r], dtype)
                    for r, w in enumerate(source_global[1])]
-    elif prepared_nn is not None:
-        nn_fn, nn_state, nn_res = prepared_nn
-        if getattr(nn_fn, "with_normals", False) != (estimator == "plane"):
-            raise ValueError(
-                "prepared_nn was built with with_normals="
-                f"{getattr(nn_fn, 'with_normals', False)} but "
-                f"estimator={estimator!r}; rebuild the factory to match")
-        if device_data is not None:
-            src_loc = device_data[0].to(dtype)
-            tgt_loc = device_data[1].to(dtype)
-        else:
-            src_loc = torch.as_tensor(source - offset, dtype=dtype,
-                                      device=dev0)
-            tgt_loc = torch.as_tensor(target - offset, dtype=dtype,
-                                      device=dev0)
-        grid0 = nn_state[0]
-        tq = nn_fn.tile_q
-        rows_d, lw = grouped_tile_order_device(
-            src_loc, grid0.origin, grid0.cell_size, resolution=nn_res,
-            tile_q=tq, group=nn_fn.layout_group)
-        # Pad so every rank's shard is a whole number of query tiles.
-        pad = (-rows_d.shape[0]) % (tq * n_dev)
-        if pad:
-            rows_d = torch.cat([rows_d, rows_d[-1:].expand(pad)])
-            lw = torch.cat([lw, lw.new_zeros(pad)])
-        rows = rows_d.cpu().numpy()
-        row_weight = lw.cpu().numpy()
-        shards = to_global(src_loc[rows_d], mesh)
-        weights = to_global(lw.to(dtype), mesh)
     else:
-        src_np = source - offset
-        tgt_np = target - offset
-        tgt_loc = torch.as_tensor(tgt_np, dtype=dtype, device=dev0)
-        nn_fn, nn_state, rows_t, w_t, nn_res = _default_nn(
-            nn_backend, src_np, tgt_np, grid_resolution, cell_capacity,
-            estimator=estimator,
-            source_dev=torch.as_tensor(src_np, dtype=dtype, device=dev0),
-            target_dev=tgt_loc)
-        if rows_t is not None:
-            # The single-device layout; each rank's shard inherits its
-            # spatial compactness.
-            rows = rows_t.cpu().numpy()
-            src_np = src_np[rows]
-        src_pad, w = pad_to_multiple(np.asarray(src_np), n_dev)
-        if w_t is not None:
-            # The layout's padding rows stay zero-weight.
-            row_weight = w_t.cpu().numpy()
-            w = w.copy()
-            w[: len(row_weight)] = row_weight
-        shards = to_global(torch.as_tensor(src_pad, dtype=dtype), mesh)
-        weights = to_global(torch.as_tensor(w, dtype=dtype), mesh)
+        lw = None
+        if hasattr(nn_fn, "layout_group"):
+            # The sweep's layout; each rank's shard inherits its spatial
+            # compactness.
+            grid0 = nn_state[0]
+            tq = nn_fn.tile_q
+            rows_d, lw = grouped_tile_order_device(
+                src_loc, grid0.origin, grid0.cell_size, resolution=nn_res,
+                tile_q=tq, group=nn_fn.layout_group)
+            if prepared_nn is not None:
+                # Every rank's shard a whole number of query tiles.
+                pad = (-rows_d.shape[0]) % (tq * n_dev)
+                if pad:
+                    rows_d = torch.cat([rows_d, rows_d[-1:].expand(pad)])
+                    lw = torch.cat([lw, lw.new_zeros(pad)])
+            row_weight = lw.cpu().numpy()
+        if rows_d is not None:
+            rows = rows_d.cpu().numpy()
+            src_loc = src_loc[rows_d]
+        w = (lw.to(dtype) if lw is not None
+             else src_loc.new_ones(src_loc.shape[:1]))
+        # The host path's rank multiple: zero rows of weight 0.
+        pad = (-src_loc.shape[0]) % n_dev
+        if pad:
+            src_loc = torch.cat([src_loc, src_loc.new_zeros((pad, 3))])
+            w = torch.cat([w, w.new_zeros(pad)])
+        shards = to_global(src_loc, mesh)
+        weights = to_global(w, mesh)
     targets = per_device(mesh, tgt_loc)
     states = per_device(mesh, nn_state)
 
@@ -351,14 +335,3 @@ def icp_register_sharded(
         res = compose_initial(res, T_init)
     return res
 
-
-def rebase_on_device(T: np.ndarray, device_data, dtype=torch.float32):
-    """``device_data`` with its source moved by the world-frame ``T``, on
-    its device and in its centered frame (the multiscale fine level's
-    pre-alignment)."""
-    src_dev, tgt_dev, offset = device_data
-    T_loc = _rebase_transform(T, -np.asarray(offset, np.float64))
-    src = apply_transform(
-        torch.as_tensor(T_loc, dtype=dtype, device=src_dev.device),
-        src_dev.to(dtype))
-    return src, tgt_dev, offset

@@ -22,7 +22,7 @@ from _torch_threads import one_torch_thread  # noqa: F401
 
 from iterativeclosestpoint_tpu_torch import icp_register_multiscale
 from iterativeclosestpoint_tpu_torch.cli import main as cli_main
-from iterativeclosestpoint_tpu_torch.models import multiscale
+from iterativeclosestpoint_tpu_torch.models import prep
 from iterativeclosestpoint_tpu_torch.ops import sweep_params
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     estimate_fine_grid,
@@ -83,10 +83,9 @@ def test_registration_bit_equal_to_the_numpy_estimate(estimator,
         seen.append(estimate_fine_grid_device(tgt_dev, resolution, **k))
         return seen[-1]
 
-    monkeypatch.setattr(multiscale, "estimate_fine_grid_device", spy)
+    monkeypatch.setattr(prep, "estimate_fine_grid_device", spy)
     dev = icp_register_multiscale(src, tgt, **kw)
-    monkeypatch.setattr(multiscale, "estimate_fine_grid_device",
-                        _host_estimate)
+    monkeypatch.setattr(prep, "estimate_fine_grid_device", _host_estimate)
     host = icp_register_multiscale(src, tgt, **kw)
     (grid_est, boost2_est), = seen
     assert (boost2_est is not None) == (estimator == "plane")

@@ -33,6 +33,7 @@ from iterativeclosestpoint_tpu_torch import (
     icp_register_multiscale,
 )
 from iterativeclosestpoint_tpu_torch.models import icp as ticp
+from iterativeclosestpoint_tpu_torch.models import prep as tprep
 
 UTM = np.array([500_000.0, 4_000_000.0, 1_200.0])
 
@@ -123,7 +124,7 @@ def test_loop_step_from_jax_carry():
     s, t = (torch.as_tensor(x, dtype=torch.float64) for x in (src, tgt))
     out = ticp.icp_core(
         s, torch.ones(len(src), dtype=torch.float64), t, (),
-        nn_fn=ticp._brute_adapter, max_iterations=1, tolerance=0.0,
+        nn_fn=tprep._brute_adapter, max_iterations=1, tolerance=0.0,
         sigma_multiplier=3.0, widen_first=False,
         carry=convert.carry_from_numpy(*carry, dtype=torch.float64,
                                        device="cpu"))

@@ -43,7 +43,7 @@ from iterativeclosestpoint_tpu_torch import (
     icp_register,
     icp_register_multiscale,
 )
-from iterativeclosestpoint_tpu_torch.models.icp import (
+from iterativeclosestpoint_tpu_torch.models.prep import (
     _brute_adapter,
     _brute_plane_adapter,
 )
