@@ -9,8 +9,9 @@ Phases, one or more lines each:
 
 1. device: the card's name, ``nvidia-smi`` name and power limit, and its
    maximum SM clock, from which the issue floor below is computed;
-2. build: the three CUDA sources (``csrc/*.cu``; K1 and K2 each in a
-   default and a first-tie form), one nvcc each, together;
+2. build: the four CUDA sources (``csrc/*.cu``; K1 and K2 each in a
+   default and a first-tie form, the two sweep windows), one nvcc each,
+   together;
 3. kernels against plain, at every shape the main paths launch. On the
    1M-point terrain pair (seed 7), on grids that carry the target's
    cell-PCA normals in rows 3-5 (the plane path's grids; the point paths
@@ -51,7 +52,16 @@ Phases, one or more lines each:
    about twice the data-sheet bound, and each line gives the share of it
    the kernel reaches. K2's pairs count each tile's distinct rows (its
    kernel scans a row that two slab windows share once), and its lines
-   name the CTAs per tile (splits) its wrapper chose;
+   name the CTAs per tile (splits) its wrapper chose. Each sweep any
+   phase holds takes its window from a ``[3 windows]`` line, which holds
+   the window kernel (``slab_window``, ``zcol_window``) against its plain
+   version on the same layout, bit for bit, with both times (CUDA-event
+   medians of 5), its bytes bound and its launch tally: the fine windows
+   (the 1M terrain's, the 10M base and boosted grids', the middle
+   level's, the 1M volume's z-columns and their slot-wise form) and the
+   coarse repair windows beside them. A window is keyed (slots, trange,
+   fused), as K1 is, so each window shape a path launches is held
+   wherever the sweep it feeds is;
 4. the main path: ``icp_register_multiscale`` with the headline
    configuration (1M points, coarse_max_points 30k, 15 coarse and 20 fine
    iterations at tolerance 0), one warm-up and 3 timed runs, launch counts
@@ -273,8 +283,8 @@ Phases, one or more lines each:
    ``mask_far`` on the 1M target with 300 far rows: real rows bit for
    bit the build without them, far rows +z, card against CPU by angle.
    Every shape its runs launched is held against plain;
-14. a JSON line ``{"kernels": [...]}`` with each kernel's launches over
-   the main paths (headline, volume, plane, plane_10m, product, graph,
+14. a JSON line ``{"kernels": [...]}`` with each kernel's launches (the
+   windows' too) over the main paths (headline, volume, plane, plane_10m, product, graph,
    backends, phase 9's mesh_dp, mesh_partition, mesh_repair, mesh_graph,
    mesh_product, phase 10's mp_dp and mp_ingest, each summed over its
    processes, phase 11a's bench, and phase 13's first_tie, host_factory,
@@ -641,6 +651,61 @@ def _sweep_k1(results, win, tgt_t, slabs, trange, replaces, spec,
     _record(results, "colsweep_fused", (slabs, trange), entry)
 
 
+def _hold_window(results, label, kind, query, grid, kw, spec):
+    """The window kernel of ``kind`` ("slab", ``sweep_window``'s keywords
+    in ``kw``, or "zcol", ``zcol_window``'s) against its plain version on
+    ``query``'s tiles: CUDA-event medians of 5 calls of each, the outputs
+    bit for bit (radius: NaN where plain has NaN) and the launch tally;
+    keyed (slots, trange, fused), since its tile count follows the query
+    layout as K1's does. Bound: bytes, 12 read and 5 written a query, 8
+    gathered and 4 (base) or 8 (base and mask) written a slot, over the
+    data sheet's HBM rate. Returns the kernel's window: every sweep a
+    phase holds takes its window from here, so each window shape a main
+    path launches is held where its sweep's shape is."""
+    from iterativeclosestpoint_tpu_torch.ops import sweep_kernels as sk
+    from iterativeclosestpoint_tpu_torch.ops import sweep_nn as tsn
+
+    tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
+    name, kernel, plain, replaces = (
+        ("zcol_window", tsn.zcol_window, tsn._zcol_window_plain,
+         f"{tpu}:1692") if kind == "zcol" else
+        ("slab_window", tsn.sweep_window, tsn._sweep_window_plain,
+         f"{tpu}:1429"))
+    q = query.contiguous()
+    before = sk.LAUNCHES[name]
+    ms, win_k = cuda_ms(lambda: kernel(q, grid, **kw))
+    launches = sk.LAUNCHES[name] - before
+    check(launches == 6, f"{label}: {name} launched {launches} times in 6 "
+          "calls")
+    plain_ms, win_p = cuda_ms(lambda: plain(q, grid, **kw))
+    for field in ("base", "slack", "complete"):
+        a, b = getattr(win_k, field), getattr(win_p, field)
+        check((a is None and b is None) or torch.equal(a, b),
+              f"{label}: {name} {field} differs from plain")
+    nan = torch.isnan(win_p.radius)
+    check(torch.equal(torch.isnan(win_k.radius), nan) and torch.equal(
+        win_k.radius.masked_fill(nan, 0).view(torch.int32),
+        win_p.radius.masked_fill(nan, 0).view(torch.int32)),
+        f"{label}: {name} radius differs from plain")
+    t, slots = win_k.base.shape
+    fused = win_k.slack is not None
+    nbytes = t * 128 * 17 + t * slots * (16 if fused else 12)
+    bound = nbytes / spec.hbm_bytes_per_s * 1e3
+    trange = kw.get("trange", kw.get("zrange"))
+    share = float(win_p.complete.float().mean())
+    shape = (f"{t} tiles x {slots} slots, trange {trange}"
+             f"{'' if fused else ', no masks'}")
+    print(f"[3 windows] {label}: {name} {shape}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bytes bound {bound:.4f} ms ({nbytes} B); "
+          f"base, slack, complete and radius bit-equal; complete "
+          f"{share:.6f}; launches {launches}", flush=True)
+    _record(results, name, (slots, trange, fused), dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+        floor_ms=None, max_abs_err=0.0, library_ms=None, pairs=0,
+        bytes=nbytes, shape=shape, replaces=replaces, tiles=t))
+    return win_k
+
+
 def _distinct_rows(base, trange):
     """Rows in the union of each tile's slab windows [b, b + trange): the
     candidates K2 scans once each."""
@@ -786,7 +851,6 @@ def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
     from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
         grouped_tile_order_device,
     )
-    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import sweep_window
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         use_fused_sweep,
     )
@@ -817,8 +881,9 @@ def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
     rows, _ = grouped_tile_order_device(q, grid.origin, grid.cell_size,
                                         resolution=R)
     ql = q[rows].contiguous()
-    win = sweep_window(ql, grid, resolution=R, tile_q=128, slabs=slabs,
-                       trange=trange, fused=fused)
+    win = _hold_window(results, label, "slab", ql, grid, dict(
+        resolution=R, tile_q=128, slabs=slabs, trange=trange, fused=fused),
+        spec)
     if fused:
         _sweep_k1(results, win, grid.tgt_t, slabs, trange, f"{tpu}:1165",
                   spec, plain_reps=reps)
@@ -836,8 +901,9 @@ def _hold_slab_grids(results, label, prepared, tgt_local, tgt_dev, rng,
         device=tgt_dev.device)
     rows2, _ = grouped_tile_order_device(q2, grid.origin, grid.cell_size,
                                          resolution=R)
-    win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc,
-                        tile_q=128, slabs=slabs, trange=ctrange, fused=False)
+    win2 = _hold_window(results, f"{label} coarse", "slab", q2[rows2][:n2],
+                        coarse, dict(resolution=Rc, tile_q=128, slabs=slabs,
+                                     trange=ctrange, fused=False), spec)
     _sweep_k2(results, win2, coarse.tgt_t, slabs, ctrange, cts,
               f"{tpu}:1025", spec)
     bt = 4096 // 128
@@ -859,8 +925,6 @@ def phase_kernels(data, vdata, data10, spec):
     )
     from iterativeclosestpoint_tpu_torch.ops.sweep_nn import (
         make_pallas_nn_device,
-        sweep_window,
-        zcol_window,
     )
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         estimate_grid_params,
@@ -869,7 +933,8 @@ def phase_kernels(data, vdata, data10, spec):
     dev = torch.device(DEVICE)
     tpu = "iterativeclosestpoint_tpu/ops/pallas_nn.py"
     results = {"colsweep_fused": {}, "colsweep": {}, "colsweep_fused_ft": {},
-               "colsweep_ft": {}, "brute_nn": {}}
+               "colsweep_ft": {}, "brute_nn": {}, "slab_window": {},
+               "zcol_window": {}}
     rng = np.random.default_rng(7)
 
     def coarse_level(d, stride):
@@ -944,8 +1009,8 @@ def phase_kernels(data, vdata, data10, spec):
         device=dev)
     rows, _ = grouped_tile_order_device(qv, zgrid.origin, zgrid.cell_size,
                                         resolution=R, group="xy")
-    win = zcol_window(qv[rows], zgrid, resolution=R, tile_q=128,
-                      zrange=zrange, fused=True)
+    win = _hold_window(results, "volume", "zcol", qv[rows], zgrid, dict(
+        resolution=R, tile_q=128, zrange=zrange, fused=True), spec)
     _sweep_k1(results, win, zgrid.tgt_t, 12, zrange, f"{tpu}:1833",
               spec)
 
@@ -957,8 +1022,9 @@ def phase_kernels(data, vdata, data10, spec):
                          device=dev)
     rows2, _ = grouped_tile_order_device(q2, zgrid.origin, zgrid.cell_size,
                                          resolution=R, group="xy")
-    win2 = sweep_window(q2[rows2][:n2], coarse, resolution=Rc, tile_q=128,
-                        slabs=4, trange=ctrange, fused=False)
+    win2 = _hold_window(results, "volume coarse", "slab", q2[rows2][:n2],
+                        coarse, dict(resolution=Rc, tile_q=128, slabs=4,
+                                     trange=ctrange, fused=False), spec)
     _sweep_k2(results, win2, coarse.tgt_t, 4, ctrange, cts, f"{tpu}:1025",
               spec)
 
@@ -966,8 +1032,9 @@ def phase_kernels(data, vdata, data10, spec):
     # z-grid with a zrange past the fused gate.
     zg2 = build_zgrid(tgt_dev, zgrid.origin, zgrid.cell_size, resolution=R,
                       zrange=ZCOL_SLOTWISE)
-    win3 = zcol_window(qv[rows], zg2, resolution=R, tile_q=128,
-                       zrange=ZCOL_SLOTWISE, fused=False)
+    win3 = _hold_window(results, "volume slot-wise", "zcol", qv[rows], zg2,
+                        dict(resolution=R, tile_q=128, zrange=ZCOL_SLOTWISE,
+                             fused=False), spec)
     _sweep_k2(results, win3, zg2.tgt_t, 12, ZCOL_SLOTWISE,
               [SLOTWISE_TILES], f"{tpu}:1833", spec)
     return results
@@ -975,8 +1042,9 @@ def phase_kernels(data, vdata, data10, spec):
 
 def _shape_key(name, shape):
     """The phase-3 key of a launch tallied as ``(name, shape)`` (K1's
-    forms leave out the tile count)."""
-    return shape[1:] if name.startswith("colsweep_fused") else shape
+    forms and the windows leave out the tile count)."""
+    return (shape[1:] if name.startswith("colsweep_fused")
+            or name.endswith("_window") else shape)
 
 
 def _final_pose(tag, data, transform, prepared, sample=None,
@@ -1467,7 +1535,6 @@ def _hold_small_runs(tag, by_shape, measured, spec, kept):
     from iterativeclosestpoint_tpu_torch.ops.sweep_grid import (
         grouped_tile_order_device,
     )
-    from iterativeclosestpoint_tpu_torch.ops.sweep_nn import sweep_window
     from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
         use_fused_sweep,
     )
@@ -1497,10 +1564,11 @@ def _hold_small_runs(tag, by_shape, measured, spec, kept):
         fused = use_fused_sweep(4, trange)
         if ("colsweep_fused", (4, trange)) in [
                 (nm, _shape_key(nm, sh)) for nm, sh in left]:
-            _sweep_k1(measured, sweep_window(
-                ql, grid, resolution=R, tile_q=128, slabs=4, trange=trange,
-                fused=True), grid.tgt_t, 4, trange, f"{tpu}:1165",
-                spec, plain_reps=2)
+            _sweep_k1(measured, _hold_window(
+                measured, tag, "slab", ql, grid, dict(
+                    resolution=R, tile_q=128, slabs=4, trange=trange,
+                    fused=True), spec), grid.tgt_t, 4, trange,
+                f"{tpu}:1165", spec, plain_reps=2)
         for nm, sh in left:
             if nm != "colsweep" or sh[1] != 4 or sh[2] not in (trange,
                                                                ctrange):
@@ -1513,9 +1581,10 @@ def _hold_small_runs(tag, by_shape, measured, spec, kept):
                 device=dev)
             order, _ = grouped_tile_order_device(
                 qq, grid.origin, grid.cell_size, resolution=R)
-            _sweep_k2(measured, sweep_window(
-                qq[order][:ct * 128], g, resolution=r_g, tile_q=128,
-                slabs=4, trange=tr, fused=False), g.tgt_t, 4, tr, [ct],
+            _sweep_k2(measured, _hold_window(
+                measured, tag, "slab", qq[order][:ct * 128], g, dict(
+                    resolution=r_g, tile_q=128, slabs=4, trange=tr,
+                    fused=False), spec), g.tgt_t, 4, tr, [ct],
                 f"{tpu}:1025", spec, plain_reps=2)
         for nm, sh in _unheld(by_shape, measured):
             if nm == "brute_nn" and sh[1] == m:
@@ -3821,7 +3890,6 @@ def phase_first_tie(data, measured, spec):
         make_pallas_nn,
         make_pallas_nn_device,
         nn_colsweep,
-        sweep_window,
     )
 
     dev = torch.device(DEVICE)
@@ -3883,8 +3951,8 @@ def phase_first_tie(data, measured, spec):
         check(r == 1 or bool(out[3].any()), f"13 {label}: nothing certified")
         n = -(-qq.shape[0] // 128) * 128
         qp = torch.cat([qq, qq[-1:].expand(n - qq.shape[0], 3)])
-        win = sweep_window(qp, g, resolution=r, tile_q=128, slabs=s,
-                           trange=tr, fused=f)
+        win = _hold_window(measured, f"13 {label}", "slab", qp, g, dict(
+            resolution=r, tile_q=128, slabs=s, trange=tr, fused=f), spec)
         e = _sweep_ft(measured, label, win, g.tgt_t, s, tr, f,
                       f"{tpu}:{1272 if f else 1103}", spec)
         if r == 1:
@@ -4183,6 +4251,9 @@ def main() -> int:
         # on the one-cell grid (K3).
         ("colsweep_ft", "colsweep.cu", 1103),
         ("brute_nn", "brute_nn.cu", 1103),
+        # No TPU kernel: the XLA ops around the sweep's pallas_call.
+        ("slab_window", "sweep_window.cu", 1429),
+        ("zcol_window", "sweep_window.cu", 1692),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
             "max_abs_err", "library_ms")

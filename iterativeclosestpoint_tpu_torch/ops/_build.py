@@ -31,13 +31,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("colsweep_fused", "colsweep", "brute_nn")
+SOURCES = ("colsweep_fused", "colsweep", "brute_nn", "sweep_window")
 # Each source's C entry points: a sweep's first-tie form (``_ft``) is a
 # second instantiation of its kernel, in the same library.
 ENTRY_POINTS = {
     "colsweep_fused": ("colsweep_fused", "colsweep_fused_ft"),
     "colsweep": ("colsweep", "colsweep_ft"),
     "brute_nn": ("brute_nn",),
+    "sweep_window": ("slab_window", "zcol_window"),
 }
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,9 +54,12 @@ _ARGTYPES = {
     "colsweep_fused": [_P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
     "colsweep": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P],
     "brute_nn": [_P, _I, _P, _I, _I, _I, _P, _P],
+    "slab_window": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                    _P, _P],
 }
 _ARGTYPES["colsweep_fused_ft"] = _ARGTYPES["colsweep_fused"]
 _ARGTYPES["colsweep_ft"] = _ARGTYPES["colsweep"]
+_ARGTYPES["zcol_window"] = _ARGTYPES["slab_window"]
 
 _LIBS: dict = {}
 _LOCK = threading.RLock()  # guards building and _LIBS

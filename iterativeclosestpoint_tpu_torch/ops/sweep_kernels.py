@@ -1,4 +1,4 @@
-"""The sweep's three CUDA kernels, their wrappers and their plain versions.
+"""The sweep's CUDA kernels, their wrappers and their plain versions.
 
 | kernel | source | replaces (``iterativeclosestpoint_tpu/ops/pallas_nn.py``) |
 | --- | --- | --- |
@@ -8,6 +8,8 @@
 | K2 ``colsweep`` | ``csrc/colsweep.cu`` | ``_colsweep_kernel`` :1025 (and zcol's slot-wise form past 24576 lanes) |
 | K2's first-tie form ``colsweep_ft`` | ``csrc/colsweep.cu`` | ``_colsweep_kernel(first_tie=True)`` :1103 on a real grid |
 | K3 ``brute_nn`` | ``csrc/brute_nn.cu`` | ``_colsweep_kernel(first_tie=True)`` on a one-cell grid |
+| ``slab_window`` | ``csrc/sweep_window.cu`` | no kernel: XLA ops around ``_sweep_kernel_call`` in ``nn_colsweep`` :1429 |
+| ``zcol_window`` | ``csrc/sweep_window.cu`` | no kernel: XLA ops around it in ``nn_colsweep_z`` :1692 |
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel on the current stream of the tensors'
@@ -15,10 +17,10 @@ card (a mesh rank's thread may hold tensors on another card than the
 process's current one) or raises; each
 launch adds one to ``LAUNCHES[name]`` and to ``LAUNCH_SHAPES[(name,
 shape)]``, the shape being (tiles, slabs, trange) for a sweep (slabs =
-12 and trange = zrange for the z-column sweep) and (queries, targets)
-for K3 (under a lock: mesh ranks launch from several threads). The
-kernels allocate nothing: the wrappers
-allocate outputs with ``torch.empty`` / ``torch.full``.
+12 and trange = zrange for the z-column sweep), (tiles, slots, trange,
+fused) for a window and (queries, targets) for K3 (under a lock: mesh
+ranks launch from several threads). The kernels allocate nothing: the
+wrappers allocate outputs with ``torch.empty`` / ``torch.full``.
 
 Sweep output contract (K1, K2 and their plain version): (t, 8, 128) f32
 per tile of 128 queries — rows 0-5 the winner's rows 0-5 of ``tgt_t``
@@ -67,7 +69,8 @@ MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y (K3's splits)
 K3_CTA_SETUP_ROWS = 188
 
 LAUNCHES = {"colsweep_fused": 0, "colsweep": 0, "colsweep_fused_ft": 0,
-            "colsweep_ft": 0, "brute_nn": 0}
+            "colsweep_ft": 0, "brute_nn": 0, "slab_window": 0,
+            "zcol_window": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 _TALLY_LOCK = threading.Lock()
 
@@ -265,6 +268,55 @@ def colsweep(base, q, tgt_t, *, slabs: int, trange: int, fused: bool,
                 splits, 0 if part is None else part.data_ptr(),
                 out.data_ptr())
     return out
+
+
+def sweep_window_kernel(name, q32, csr, origin, cell_size, bbox_hi, *,
+                        resolution: int, tile_q: int, slots: int,
+                        trange: int, m_rows: int, fused: bool):
+    """Launch a window kernel over ``q32``'s tiles (CUDA tensors only):
+    ``name`` "slab_window" (``csr`` the (R²+1,) column CSR, ``slots`` the
+    slabs) or "zcol_window" (``csr`` the (R³+1,) cell CSR, ``slots`` the
+    (x, y) column slots, ``trange`` the zrange). ``q32`` (t·128, 3) f32;
+    ``origin``, ``bbox_hi`` (3,) and ``cell_size`` () or (3,) f32, the
+    grid's; ``m_rows`` the columns of its ``tgt_t``. Returns (base (t,
+    slots) int32, slack (t, slots) int32 with ``fused`` else None,
+    complete (t·128,) bool, radius (t·128,) f32): the plain versions'
+    (``ops/sweep_nn.py``) bit for bit."""
+    n = q32.shape[0] if q32.ndim else 0
+    R = resolution
+    _check("q32", q32, torch.float32, (n, 3))
+    cells = R * R + 1 if name == "slab_window" else R**3 + 1
+    _check("csr", csr, torch.int32, (cells,))
+    _check("origin", origin, torch.float32, (3,))
+    _check("bbox_hi", bbox_hi, torch.float32, (3,))
+    _check("cell_size", cell_size, torch.float32)
+    if cell_size.shape not in ((), (3,)):
+        raise ValueError(f"cell_size: expected shape () or (3,), got "
+                         f"{tuple(cell_size.shape)}")
+    if tile_q != TILE_Q or n % TILE_Q:
+        raise ValueError(f"{name}: the kernel takes tiles of {TILE_Q} "
+                         f"queries, got tile_q={tile_q} over {n} rows")
+    if not 1 <= slots <= MAX_SLABS or not trange <= m_rows < 2**31:
+        raise ValueError(f"{name}: the kernel takes 1 to {MAX_SLABS} slots "
+                         f"and trange ≤ rows < 2³¹, got {slots} slots, "
+                         f"trange {trange}, {m_rows} rows")
+    tensors = (q32, csr, origin, cell_size, bbox_hi)
+    if q32.device.type != "cuda" or any(x.device != q32.device
+                                        for x in tensors):
+        raise ValueError(f"{name}: all tensors on one CUDA device")
+    t = n // TILE_Q
+    dev = q32.device
+    base = torch.empty((t, slots), dtype=torch.int32, device=dev)
+    slack = (torch.empty((t, slots), dtype=torch.int32, device=dev)
+             if fused else None)
+    complete = torch.empty((n,), dtype=torch.bool, device=dev)
+    radius = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch(name, (t, slots, trange, fused), dev, q32.data_ptr(), csr.data_ptr(),
+            origin.data_ptr(), cell_size.data_ptr(), cell_size.numel(),
+            bbox_hi.data_ptr(), t, R, slots, trange, m_rows - trange,
+            base.data_ptr(), 0 if slack is None else slack.data_ptr(),
+            complete.data_ptr(), radius.data_ptr())
+    return base, slack, complete, radius
 
 
 @functools.lru_cache(maxsize=256)

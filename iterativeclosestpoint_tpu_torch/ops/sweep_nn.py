@@ -22,15 +22,19 @@ Both brute stages run in the query's dtype (``nn_exact``): K3 at f32, the
 plain ``nn_bruteforce`` at f64, as the JAX repair's ``nn_bruteforce``
 serves both.
 
+The windows are one CUDA kernel launch each on the card
+(``csrc/sweep_window.cu``, which reads nothing back); their plain versions
+(``_sweep_window_plain``, ``_zcol_window_plain``) run for CPU tensors.
+
 The JAX package gates each repair stage with ``lax.cond`` on a device
 count. Here each gate reads its count to the host (``int(...)``) and the
 stage runs only when the gate fires. In the certified steady state an
-iteration therefore costs one fine kernel launch, a few small reductions
-and two host reads (coarse census, brute census); the ICP loop adds a
-third for its stop code. On the card the window's edge scalars
-(``_edge_dist``) synchronise too. Each of these is a ``read/*`` span, and
-the repair chain's span ``nn/repair`` counts its tiles
-(``runtime/timing.py``).
+iteration therefore costs a window and a fine kernel launch, a few small
+reductions and two host reads (coarse census, brute census); the ICP loop
+adds a third for its stop code. Each of these is a ``read/*`` span, and
+the repair chain's span ``nn/repair`` counts its tiles, the window span
+``nn/window`` its kernel launches (``window_kernels``: 0 on the plain
+path; ``runtime/timing.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from iterativeclosestpoint_tpu_torch.ops.sweep_kernels import (
     colsweep,
     nn_brute,
     nn_exact,
+    sweep_window_kernel,
 )
 from iterativeclosestpoint_tpu_torch.ops.sweep_params import (
     _AUTO_TRANGE_SAMPLE_CAP,
@@ -125,7 +130,7 @@ def _edge_dist(p, lo_c, hi_c, cell, hi, R: int):
     of a window covering cells [lo_c - 1, hi_c + 1]. An edge at or beyond
     the grid boundary, or strictly beyond the target's true extent ``hi``,
     is infinitely far."""
-    with stage("read/inf"):  # a host-to-device copy: the card syncs
+    with stage("read/inf"):  # a host-to-device copy for CUDA tensors
         inf = torch.tensor(float("inf"), dtype=torch.float32,
                            device=p.device)
     r_lo = torch.where(lo_c <= 1, inf, p - (lo_c - 1).to(torch.float32) * cell)
@@ -152,11 +157,36 @@ def _slot_bases(start, end, m_rows: int, trange: int, fused: bool):
     return base, slack
 
 
+def _window_kernel(name, query, grid, csr, **kw) -> SweepWindow:
+    """A window through its kernel (``sweep_window_kernel``), counted on
+    the enclosing span as ``window_kernels``."""
+    q32 = query.to(torch.float32).contiguous()
+    out = sweep_window_kernel(name, q32, csr, grid.origin, grid.cell_size,
+                              grid.bbox_hi, m_rows=grid.tgt_t.shape[1], **kw)
+    count("window_kernels")
+    return SweepWindow(q32, *out)
+
+
 def sweep_window(query: torch.Tensor, grid: PallasGrid, *, resolution: int,
                  tile_q: int, slabs: int, trange: int,
                  fused: bool) -> SweepWindow:
     """Per-tile slab windows and per-query certificates for ``query``,
-    whose length is a multiple of ``tile_q``."""
+    whose length is a multiple of ``tile_q``: the ``slab_window`` kernel
+    for CUDA tensors (``tile_q`` 128), the plain version for CPU ones."""
+    if query.device.type == "cpu":
+        count("window_kernels", 0)
+        return _sweep_window_plain(query, grid, resolution=resolution,
+                                   tile_q=tile_q, slabs=slabs, trange=trange,
+                                   fused=fused)
+    return _window_kernel("slab_window", query, grid, grid.col_start,
+                          resolution=resolution, tile_q=tile_q, slots=slabs,
+                          trange=trange, fused=fused)
+
+
+def _sweep_window_plain(query: torch.Tensor, grid: PallasGrid, *,
+                        resolution: int, tile_q: int, slabs: int,
+                        trange: int, fused: bool) -> SweepWindow:
+    """``sweep_window``'s plain version (any device, any ``tile_q``)."""
     R = resolution
     dev = query.device
     n = query.shape[0]
@@ -219,7 +249,9 @@ def zcol_window(query: torch.Tensor, grid: ZPallasGrid, *, resolution: int,
                 xy_slots: int = XY_SLOTS) -> SweepWindow:
     """Per-tile z-window column slots and per-tile certificates for
     ``query`` in an (x, y)-group layout, whose length is a multiple of
-    ``tile_q`` (``nn_colsweep_z`` :1692-1832 of the JAX package).
+    ``tile_q`` (``nn_colsweep_z`` :1692-1832 of the JAX package): the
+    ``zcol_window`` kernel for CUDA tensors (``tile_q`` 128), the plain
+    version for CPU ones.
 
     Slot k covers column (x, y) = (lo_x + k // ny, lo_y + k % ny) of the
     tile's dilated window [min-1, max+1]² and its cells [lo_z, hi_z]: one
@@ -227,6 +259,20 @@ def zcol_window(query: torch.Tensor, grid: ZPallasGrid, *, resolution: int,
     window column fits ``zrange − 128`` rows and the window has at most
     ``xy_slots`` columns.
     """
+    if query.device.type == "cpu":
+        count("window_kernels", 0)
+        return _zcol_window_plain(query, grid, resolution=resolution,
+                                  tile_q=tile_q, zrange=zrange, fused=fused,
+                                  xy_slots=xy_slots)
+    return _window_kernel("zcol_window", query, grid, grid.cell_start,
+                          resolution=resolution, tile_q=tile_q,
+                          slots=xy_slots, trange=zrange, fused=fused)
+
+
+def _zcol_window_plain(query: torch.Tensor, grid: ZPallasGrid, *,
+                       resolution: int, tile_q: int, zrange: int,
+                       fused: bool, xy_slots: int = XY_SLOTS) -> SweepWindow:
+    """``zcol_window``'s plain version (any device, any ``tile_q``)."""
     R = resolution
     dev = query.device
     n = query.shape[0]

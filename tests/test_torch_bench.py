@@ -133,12 +133,13 @@ def test_sections_are_logged(bench_run):
                      r"\d+ tiles x 4 slots, [\d.]+% of real rows certified",
                      err)
     # No card: no issue floor, and no CUDA launch is counted, the sweeps'
-    # first-tie forms included.
+    # first-tie forms and the window kernels included.
     assert "of the floor" not in err
     assert json.loads(next(ln for ln in lines if ln.startswith(
         "launches: "))[len("launches: "):]) == {
             "colsweep_fused": 0, "colsweep": 0, "colsweep_fused_ft": 0,
-            "colsweep_ft": 0, "brute_nn": 0}
+            "colsweep_ft": 0, "brute_nn": 0, "slab_window": 0,
+            "zcol_window": 0}
 
 
 def test_baseline_and_parity(bench_run):

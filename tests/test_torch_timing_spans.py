@@ -202,10 +202,12 @@ def test_registration_bit_identical_with_and_without_spans(pair, estimator):
         for part in ("occupancy", "params", "boost"):
             assert s[f"grid_est/{part}"]["calls"] == 1
         # The other calls that synchronise on the card: the loop's three
-        # scalars, the slab window's two edge scalars, the point SVD.
+        # scalars, the point SVD; and the plain slab window's two edge
+        # scalars, which the card's window kernel does without.
         assert s["fine/read/const"]["calls"] == 3
         assert s["fine/read/inf"]["calls"] == 2 * s["fine/nn/window"][
             "calls"]
+        assert s["fine/nn/window"]["window_kernels"] == 0
         assert s.get("fine/read/svd", {}).get("calls", 0) == (
             fine_iters if estimator == "point" else 0)
         assert s["coarse/read/stop"]["calls"] == runs[0].levels[0][1] \
@@ -351,7 +353,8 @@ def test_card_loop_syncs_are_its_read_spans(card, kind):
     registration with one fine iteration (the slab sweep on terrain, the
     z-column sweep on a box) and its coarse level. Every sync inside a
     loop is in a read span, and every read span synchronises: once, but
-    the SVD (``read/svd``), which syncs twice."""
+    the SVD (``read/svd``), which syncs twice. The windows are one kernel
+    launch each (``window_kernels``) and open no ``read/inf``."""
     src, tgt, _ = make_registration_pair(n=1_000_000, seed=5, kind=kind,
                                          noise_sigma=0.02)
     kw = dict(max_iterations=1, nn_backend="pallas", coarse_iterations=15,
@@ -371,6 +374,10 @@ def test_card_loop_syncs_are_its_read_spans(card, kind):
         for i in reads:
             want = 2 if col.intervals[i].name.endswith("/read/svd") else 1
             assert per_read[i] == want, col.intervals[i].name
+        assert not [i for i in reads
+                    if col.intervals[i].name.endswith("/read/inf")], lv
+    win = col.summary()["fine/nn/window"]
+    assert win["window_kernels"] == win["calls"] >= 1
 
 
 @pytest.mark.cuda
